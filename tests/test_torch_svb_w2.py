@@ -1,0 +1,226 @@
+"""The port's W2 rows (``vbz_compression_tpu_torch.ops.svb_w2``) against the
+JAX package's Pallas W2 kernels and the NumPy oracle.
+
+The JAX side runs as ``tests/test_pallas_kernels.py`` runs it, in interpret
+mode, on that file's inputs; the port side runs the plain PyTorch version,
+which is what ``encode_w2_rows`` / ``decode_w2_rows`` do for CPU tensors.
+Every comparison is exact: the codec is an integer codec. The kernels
+themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from vbz_compression_tpu.ops import pallas_codec3 as pc3
+from vbz_compression_tpu.ops import pallas_codec5 as pc5
+from vbz_compression_tpu.ops import pallas_dense as pcd
+from vbz_compression_tpu.ops import scalar
+from vbz_compression_tpu_torch.ops import svb_w2
+
+_SIZE = {"zz16": 2, "zz8": 1}
+
+
+def _encode(rows: np.ndarray, lens, flavor: str):
+    """Port encode of a [B, N] batch on the CPU; per-row wire streams plus
+    the raw outputs."""
+    keys, data, dlen = svb_w2.encode_w2_rows(
+        torch.from_numpy(rows), torch.tensor(lens, dtype=torch.int32), flavor)
+    streams = [keys[b, :(n + 3) // 4].numpy().tobytes()
+               + data[b, :int(dlen[b])].numpy().tobytes()
+               for b, n in enumerate(lens)]
+    return streams, keys, data, dlen
+
+
+def _decode(keys, data, lens, flavor: str) -> np.ndarray:
+    return svb_w2.decode_w2_rows(keys, data,
+                                 torch.tensor(lens, dtype=torch.int32),
+                                 flavor).numpy()
+
+
+def _walk(rng, n, sigma=12.0):
+    return np.clip(500 + np.cumsum(rng.normal(0, sigma, n)), -2000,
+                   2000).astype(np.int16)
+
+
+def test_rows_batch_matches_pallas5():
+    """test_pallas5_rows_batch_roundtrip's batch: per-row resets, each row's
+    keys, data and length equal to the batched Pallas kernels'."""
+    rng = np.random.default_rng(3)
+    B, N, block, slack = 3, 2048, 512, 256
+    rows = np.stack([
+        _walk(rng, N),
+        np.cumsum(rng.integers(-40, 40, N)).astype(np.int16),
+        np.full(N, -7, np.int16),
+    ])
+    with pltpu.force_tpu_interpret_mode():
+        jkeys, jdata, jlens, ovf = pc5.encode_w2_rows(
+            jnp.asarray(rows), block=block, flavor="zz16", slack=slack)
+    assert np.all(np.asarray(ovf) == 0)
+    streams, keys, data, dlen = _encode(rows, [N] * B, "zz16")
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys))
+    np.testing.assert_array_equal(dlen.numpy(), np.asarray(jlens))
+    jdata = np.asarray(jdata).astype(np.uint8)
+    for b in range(B):
+        n = int(dlen[b])
+        np.testing.assert_array_equal(data[b, :n].numpy(), jdata[b, :n])
+        assert streams[b] == scalar.svb_compress(rows[b], 2, True, 0)
+    with pltpu.force_tpu_interpret_mode():
+        jout = pc5.decode_w2_rows(jkeys, jnp.asarray(jdata.astype(np.int8)),
+                                  block=block, flavor="zz16", slack=slack)
+    out = _decode(keys, data, [N] * B, "zz16")
+    np.testing.assert_array_equal(out, np.asarray(jout))
+    np.testing.assert_array_equal(out, rows)
+
+
+def _dense_inputs(name: str) -> np.ndarray:
+    """The test_dense_* inputs of tests/test_pallas_kernels.py."""
+    if name == "incompressible":
+        return np.random.default_rng(9).integers(-32768, 32768,
+                                                 4096).astype(np.int16)
+    if name == "all_two_byte":
+        return np.cumsum(np.full(2048, 300, np.int64)).astype(np.int16)
+    if name == "signal":
+        return _walk(np.random.default_rng(0), 4096)
+    if name == "mixed_codes":
+        return np.cumsum(np.random.default_rng(7).integers(
+            -400, 400, 4096)).astype(np.int16)
+    if name == "multiblock":
+        rng = np.random.default_rng(3)
+        a = rng.integers(-32768, 32768, 1024).astype(np.int16)
+        b = _walk(rng, 1024)
+        c = np.cumsum(rng.integers(-200, 200, 2048)).astype(np.int16)
+        return np.concatenate([a, b, c])
+    assert name == "wrap_extremes"
+    return np.array([-32768, 32767] * 1024, np.int16)
+
+
+@pytest.mark.parametrize("name,block", [
+    ("incompressible", 512), ("all_two_byte", 512), ("signal", 1024),
+    ("mixed_codes", 512), ("multiblock", 512), ("wrap_extremes", 512)])
+def test_dense_content_matches_pallas_dense(name, block):
+    sig = _dense_inputs(name)
+    with pltpu.force_tpu_interpret_mode():
+        keys, data, total = pcd.encode_w2_dense(jnp.asarray(sig), block=block)
+    jstream = np.asarray(keys).tobytes() + \
+        np.asarray(data).astype(np.uint8).tobytes()[: int(total)]
+    streams, pkeys, pdata, _ = _encode(sig[None], [sig.size], "zz16")
+    assert streams[0] == jstream
+    assert streams[0] == scalar.svb_compress(sig, 2, True, 0)
+    np.testing.assert_array_equal(
+        _decode(pkeys, pdata, [sig.size], "zz16")[0], sig)
+
+
+@pytest.mark.parametrize("name,flavor", [
+    ("signal", "zz16"), ("extremes", "zz16"), ("zz8", "zz8")])
+def test_small_chunks_match_pallas3(name, flavor):
+    """test_pallas3_roundtrip_* and test_pallas3_zz8 inputs: the W2 kernel
+    for chunks under 16384 values."""
+    rng = np.random.default_rng(1 if flavor == "zz8" else 0)
+    if name == "signal":
+        sig = _walk(rng, 1024)
+    elif name == "extremes":
+        sig = np.tile(np.array([-32768, 32767], np.int16), 512)
+    else:
+        sig = np.clip(np.cumsum(rng.normal(0, 3, 1024)), -100,
+                      100).astype(np.int8)
+    with pltpu.force_tpu_interpret_mode():
+        keys, data, total = pc3.encode_w2(jnp.asarray(sig), block=512,
+                                          flavor=flavor)
+    jstream = np.asarray(keys).tobytes() + \
+        np.asarray(data).astype(np.uint8).tobytes()[: int(total)]
+    streams, pkeys, pdata, _ = _encode(sig[None], [sig.size], flavor)
+    assert streams[0] == jstream
+    assert streams[0] == scalar.svb_compress(sig, _SIZE[flavor], True, 0)
+    np.testing.assert_array_equal(
+        _decode(pkeys, pdata, [sig.size], flavor)[0], sig)
+
+
+@pytest.mark.parametrize("flavor", ["zz16", "zz8"])
+@pytest.mark.parametrize("lens", [(1, 3, 4095), (4, 5, 0), (4093, 4096, 7)])
+def test_ragged_rows_match_oracle(flavor, lens):
+    """Rows of unlike lengths in one padded batch, with garbage past each
+    length: every row encodes as the oracle does on its own prefix, and the
+    tails take code 0, no data bytes, and decode to 0."""
+    rng = np.random.default_rng(17 + sum(lens))
+    dtype = np.int16 if flavor == "zz16" else np.int8
+    info = np.iinfo(dtype)
+    rows = rng.integers(info.min, info.max + 1, (3, 4096)).astype(dtype)
+    rows[1] = np.cumsum(rng.integers(-3, 4, 4096)).astype(dtype)
+    streams, keys, data, dlen = _encode(rows, lens, flavor)
+    for b, n in enumerate(lens):
+        assert streams[b] == scalar.svb_compress(rows[b, :n], _SIZE[flavor],
+                                                 True, 0), f"row {b}"
+        assert not keys[b, (n + 3) // 4:].any()
+    out = _decode(keys, data, lens, flavor)
+    for b, n in enumerate(lens):
+        np.testing.assert_array_equal(out[b, :n], rows[b, :n])
+        assert not out[b, n:].any()
+
+
+def test_decode_stays_inside_data():
+    """Keys that claim more bytes than the data row holds: decode reads
+    nothing past the row (missing bytes read as 0) and matches the oracle's
+    values on the bytes that are there."""
+    sig = np.arange(0, 4096 * 300, 300, dtype=np.int64).astype(np.int16)
+    streams, keys, data, dlen = _encode(sig[None], [sig.size], "zz16")
+    short = data[:, :100].contiguous()
+    out = _decode(keys, short, [sig.size], "zz16")
+    assert out.shape == (1, 4096)
+    # 2-byte values: the first 50 survive whole.
+    np.testing.assert_array_equal(out[0, :50], sig[:50])
+
+
+def test_cpu_tensor_runs_plain_and_counts_nothing():
+    rows = _walk(np.random.default_rng(4), 2048)[None]
+    x = torch.from_numpy(rows)
+    n = torch.tensor([2000], dtype=torch.int32)
+    before = (svb_w2.ENCODE_LAUNCHES, svb_w2.DECODE_LAUNCHES)
+    got = svb_w2.encode_w2_rows(x, n, "zz16")
+    want = svb_w2.encode_w2_rows_plain(x, n, "zz16")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    out = svb_w2.decode_w2_rows(got[0], got[1], n, "zz16")
+    assert torch.equal(out, svb_w2.decode_w2_rows_plain(got[0], got[1], n,
+                                                        "zz16"))
+    assert (svb_w2.ENCODE_LAUNCHES, svb_w2.DECODE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("bad", ["meta_device", "dtype", "width", "lens_dtype",
+                                 "lens_shape", "flavor"])
+def test_encode_rejects_bad_arguments(bad):
+    x = torch.zeros(2, 16, dtype=torch.int16)
+    lens = torch.tensor([16, 3], dtype=torch.int32)
+    flavor = "zz16"
+    if bad == "meta_device":
+        x, lens = x.to("meta"), lens.to("meta")
+    elif bad == "dtype":
+        x = x.to(torch.int32)
+    elif bad == "width":
+        x = x[:, :15]
+    elif bad == "lens_dtype":
+        lens = lens.to(torch.int64)
+    elif bad == "lens_shape":
+        lens = lens[:1]
+    else:
+        flavor = "none16"
+    with pytest.raises(ValueError):
+        svb_w2.encode_w2_rows(x, lens, flavor)
+
+
+def test_decode_rejects_bad_arguments():
+    keys = torch.zeros(2, 4, dtype=torch.uint8)
+    data = torch.zeros(2, 32, dtype=torch.uint8)
+    counts = torch.tensor([16, 3], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        svb_w2.decode_w2_rows(keys.to("meta"), data.to("meta"),
+                              counts.to("meta"), "zz16")
+    with pytest.raises(ValueError):
+        svb_w2.decode_w2_rows(keys, data[:1], counts, "zz16")
+    with pytest.raises(ValueError):
+        svb_w2.decode_w2_rows(keys.to(torch.int8), data, counts, "zz16")
+    with pytest.raises(ValueError):
+        svb_w2.decode_w2_rows(keys, data, counts, "zz32")

@@ -1,0 +1,232 @@
+"""W2 StreamVByte rows: delta + zig-zag + 1-2 byte packing, batched.
+
+The counterpart of the TPU kernels that carry the zz16/zz8 W2 flavors
+(``vbz_compression_tpu.ops.pallas_codec5`` encode/decode ``_w2``,
+``_w2_general`` and ``_w2_rows_flat``; ``pallas_dense`` ``encode_w2_dense`` /
+``decode_w2_dense``; the W2 half of ``pallas_codec3``). The TPU needed six
+kernels for two functions because Mosaic has no gather or scatter: byte
+compaction became a routing network whose depth depended on the content, so
+compact, dense and small-chunk regimes each got a kernel. On Hopper one
+encode kernel (E) and one decode kernel (D), ``csrc/w2_codec.cu``, cover
+every content regime and every row length.
+
+What bounds them is bytes: 2 read per int16 value, and 0.25 key bytes plus
+1-2 data bytes written (about 1.25-2.25 per value; zz8 reads 1). There is
+no arithmetic to speak of. The design keeps each pass a single streaming
+sweep over its tile (four values, one key byte, per thread), turns the TPU's
+sequential grid carries into per-row scans over tile totals, and skips the
+tiles past a row's length, so a padded batch costs little beyond its real
+values.
+
+Layouts (B rows, N values per row, N % 4 == 0):
+    encode_w2_rows(x [B,N] i16|i8, lens [B] i32)
+        -> keys [B, N/4] u8, data [B, 2N] u8, data_len [B] i32
+    decode_w2_rows(keys [B, N/4] u8, data [B, D] u8, counts [B] i32)
+        -> [B, N] i16|i8
+Values at or past a row's length take code 0 and no data bytes, and decode
+to 0. ``data[b, data_len[b]:]`` is unspecified. Decode never reads past
+``data``'s row, whatever the keys say.
+
+On a CUDA tensor each function launches its kernel (and counts the launch in
+``ENCODE_LAUNCHES`` / ``DECODE_LAUNCHES``); on a CPU tensor it runs the plain
+PyTorch version in this module. Any other device raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+FLAVOR_DTYPES = {"zz16": torch.int16, "zz8": torch.int8}
+
+# Kernel-sequence launches, one per wrapper call that reached the card.
+ENCODE_LAUNCHES = 0
+DECODE_LAUNCHES = 0
+
+_KEY_SHIFTS = (0, 2, 4, 6)
+_MAX_N = 1 << 29   # keeps every in-row byte offset (< 2N) in an int32
+_MAX_B = 65535     # the kernels' grid y dimension
+
+
+def _dtype(flavor: str) -> torch.dtype:
+    if flavor not in FLAVOR_DTYPES:
+        raise ValueError(f"flavor {flavor!r} is not a W2 flavor "
+                         f"{tuple(FLAVOR_DTYPES)}")
+    return FLAVOR_DTYPES[flavor]
+
+
+def _check(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if t.dtype != dtype or t.dim() != 2:
+        raise ValueError(f"{name}: want 2-D {dtype}, got "
+                         f"{t.dim()}-D {t.dtype}")
+
+
+def _check_lens(lens: torch.Tensor, B: int, ref: torch.Tensor,
+                name: str) -> None:
+    if lens.dtype != torch.int32 or tuple(lens.shape) != (B,):
+        raise ValueError(f"{name}: want int32 [{B}], got {lens.dtype} "
+                         f"{tuple(lens.shape)}")
+    if lens.device != ref.device:
+        raise ValueError(f"{name} is on {lens.device}, data on {ref.device}")
+
+
+def _check_kernel_args(B: int, N: int, *tensors: torch.Tensor) -> None:
+    if N > _MAX_N or B > _MAX_B:
+        raise ValueError(f"batch [{B}, {N}] exceeds the kernel's "
+                         f"[{_MAX_B}, {_MAX_N}]")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("kernel arguments must be contiguous")
+
+
+def _valid(lens: torch.Tensor, N: int) -> torch.Tensor:
+    """[B, N] mask of the values before each row's (clamped) length."""
+    n = lens.to(torch.int64).clamp(0, N)
+    return torch.arange(N, device=lens.device)[None, :] < n[:, None]
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.tensor(_KEY_SHIFTS, dtype=torch.int32, device=device)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Encode
+# ---------------------------------------------------------------------------
+
+
+def encode_w2_rows_plain(x: torch.Tensor, lens: torch.Tensor, flavor: str):
+    """Plain PyTorch encode (any device); same contract as the kernel."""
+    B, N = x.shape
+    xi = x.to(torch.int32)
+    d = torch.diff(xi, dim=1, prepend=torch.zeros_like(xi[:, :1]))
+    if flavor == "zz16":
+        d = d & 0xFFFF                       # 16-bit wrapped delta
+        v = ((d << 1) & 0xFFFF) ^ ((d >> 15) * 0xFFFF)
+    else:
+        v = (d << 1) ^ (d >> 31)             # 32-bit delta: v <= 510
+    valid = _valid(lens, N)
+    code = ((v > 0xFF) & valid).to(torch.int32)
+    keys = (code.view(B, N // 4, 4) << _shifts(x.device)).sum(
+        dim=2).to(torch.uint8)
+    nbytes = (1 + code) * valid
+    ends = torch.cumsum(nbytes, dim=1)
+    off = ends - nbytes
+    spill = 2 * N  # scatter target of masked-out bytes, dropped below
+    data = torch.zeros(B, 2 * N + 1, dtype=torch.uint8, device=x.device)
+    data.scatter_(1, torch.where(valid, off, spill),
+                  (v & 0xFF).to(torch.uint8))
+    data.scatter_(1, torch.where(code.bool(), off + 1, spill),
+                  (v >> 8).to(torch.uint8))
+    data_len = ends[:, -1] if N else torch.zeros(B, dtype=torch.int64,
+                                                 device=x.device)
+    return keys, data[:, :spill].contiguous(), data_len.to(torch.int32)
+
+
+def encode_w2_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
+    """W2 encode of each row's first ``lens[b]`` values; see the module
+    docstring for the layouts. Kernel E on CUDA, the plain version on CPU."""
+    _check(x, _dtype(flavor), "x")
+    B, N = x.shape
+    if N % 4:
+        raise ValueError(f"row width {N} is not a multiple of 4")
+    _check_lens(lens, B, x, "lens")
+    if x.device.type == "cpu":
+        return encode_w2_rows_plain(x, lens, flavor)
+    if x.device.type != "cuda":
+        raise ValueError(f"no W2 encode for device {x.device}")
+    _check_kernel_args(B, N, x, lens)
+    keys = torch.empty(B, N // 4, dtype=torch.uint8, device=x.device)
+    data = torch.empty(B, 2 * N, dtype=torch.uint8, device=x.device)
+    data_len = torch.zeros(B, dtype=torch.int32, device=x.device)
+    if B == 0 or N == 0:
+        return keys, data, data_len
+    from . import _build
+
+    lib = _build.lib()
+    tiles = -(-N // lib.vbz_w2_tile())
+    scratch = torch.empty(2, B, tiles, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.vbz_w2_encode(
+            x.data_ptr(), lens.data_ptr(), keys.data_ptr(), data.data_ptr(),
+            data_len.data_ptr(), scratch.data_ptr(), B, N, x.element_size(),
+            _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"W2 encode kernel launch failed: CUDA error {rc}")
+    global ENCODE_LAUNCHES
+    ENCODE_LAUNCHES += 1
+    return keys, data, data_len
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def decode_w2_rows_plain(keys: torch.Tensor, data: torch.Tensor,
+                         counts: torch.Tensor, flavor: str) -> torch.Tensor:
+    """Plain PyTorch decode (any device); same contract as the kernel."""
+    B, NK = keys.shape
+    N = 4 * NK
+    D = data.shape[1]
+    code = ((keys.to(torch.int32)[:, :, None] >> _shifts(keys.device))
+            & 3).view(B, N)
+    valid = _valid(counts, N)
+    two = (code != 0) & valid
+    nbytes = valid.to(torch.int32) + two
+    off = torch.cumsum(nbytes, dim=1) - nbytes
+    padded = torch.nn.functional.pad(data, (0, 1))  # column D reads as 0
+
+    def byte_at(pos, want):
+        idx = torch.where(want & (pos < D), pos, D)
+        return torch.gather(padded, 1, idx).to(torch.int32)
+
+    v = byte_at(off, valid) | (byte_at(off + 1, two) << 8)
+    total = torch.cumsum((v >> 1) ^ -(v & 1), dim=1)  # un-zig-zag, un-delta
+    bits = 16 if flavor == "zz16" else 8
+    half = 1 << (bits - 1)
+    out = ((total & ((1 << bits) - 1)) ^ half) - half
+    return torch.where(valid, out, 0).to(FLAVOR_DTYPES[flavor])
+
+
+def decode_w2_rows(keys: torch.Tensor, data: torch.Tensor,
+                   counts: torch.Tensor, flavor: str) -> torch.Tensor:
+    """W2 decode of each row's first ``counts[b]`` values; see the module
+    docstring for the layouts. Kernel D on CUDA, the plain version on CPU."""
+    dtype = _dtype(flavor)
+    _check(keys, torch.uint8, "keys")
+    _check(data, torch.uint8, "data")
+    B, NK = keys.shape
+    if data.shape[0] != B or data.device != keys.device:
+        raise ValueError(f"data {tuple(data.shape)} on {data.device} does "
+                         f"not match keys {tuple(keys.shape)} on "
+                         f"{keys.device}")
+    _check_lens(counts, B, keys, "counts")
+    if keys.device.type == "cpu":
+        return decode_w2_rows_plain(keys, data, counts, flavor)
+    if keys.device.type != "cuda":
+        raise ValueError(f"no W2 decode for device {keys.device}")
+    N, D = 4 * NK, data.shape[1]
+    _check_kernel_args(B, N, keys, data, counts)
+    if D >= 1 << 31:
+        raise ValueError(f"data row of {D} bytes exceeds the kernel's int32")
+    out = torch.empty(B, N, dtype=dtype, device=keys.device)
+    if B == 0 or N == 0:
+        return out
+    from . import _build
+
+    lib = _build.lib()
+    tiles = -(-N // lib.vbz_w2_tile())
+    scratch = torch.empty(4, B, tiles, dtype=torch.int32, device=keys.device)
+    with torch.cuda.device(keys.device):
+        rc = lib.vbz_w2_decode(
+            keys.data_ptr(), data.data_ptr(), counts.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), B, N, D, out.element_size(),
+            _stream(keys.device))
+    if rc != 0:
+        raise RuntimeError(f"W2 decode kernel launch failed: CUDA error {rc}")
+    global DECODE_LAUNCHES
+    DECODE_LAUNCHES += 1
+    return out
