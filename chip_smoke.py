@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
 Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-Phases, each of which exits nonzero on failure:
+Phases, each of which exits nonzero on failure (each prints its seconds):
   1. device: a CUDA card must be visible; prints nvidia-smi's name and
      power limit;
-  2. build: compiles the W2 kernels from vbz_compression_tpu_torch/csrc;
-  3. kernels against their plain PyTorch versions on the card, bit for bit:
-     the four signal tiers (B=4 rows of 4M int16), the int16 wrap extremes,
-     zz8 rows, ragged row lengths and a batch of unlike rows;
-  4. main path: a 64-read corpus through vbz_compress_sized_batch /
-     vbz_decompress_sized_batch (options (0,2,1,0)), every frame identical to
-     the NumPy oracle's and every read round-tripped, with the kernel launch
-     counts of that run;
-  5. times: kernel and plain per tier and direction (CUDA events, best of 3),
-     and the batch API host to host.
-The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launches, errors and times.
+  2. build: compiles the three kernel libraries from
+     vbz_compression_tpu_torch/csrc, one nvcc per source, all at once;
+  3. kernels against their plain PyTorch versions on the card, bit for bit,
+     one row of each case also against the port's NumPy oracle:
+     E/D (W2) on the four int16 tiers (B=4 rows of 4M), the int16 wrap
+     extremes, zz8 rows, ragged row lengths and a batch of unlike rows;
+     E4/D4 (W4) per flavor on [4, 4M] signal-like and uniform content, the
+     code boundaries, the 32-bit wrap, ragged lengths and unlike rows;
+     V1E/V1D (v1) per flavor on [4, 4M] int8, the odd-nibble input, ragged
+     lengths and unlike rows;
+  4. main paths: a 64-read corpus through vbz_compress_sized_batch /
+     vbz_decompress_sized_batch at each option set of MAIN_PATHS, every frame
+     identical to the oracle's and every read round-tripped; each path's
+     kernels must have launched (counts set to 0 just before the path and
+     read just after);
+  5. times: kernel (L2 flushed before each call, and back to back) and plain
+     version per tier, flavor and direction, with each kernel's bound (the
+     bytes it must move at the card's 3.35 TB/s), and the batch API host to
+     host per main path.
+The line before the last lists the kernels with their launches, errors,
+times and bounds; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -32,85 +41,286 @@ import time
 
 import numpy as np
 
-B, N = 4, 4 << 20          # the tiers: 4 rows of 4M int16 (8 MiB each)
+B, N = 4, 4 << 20          # the timed shape: 4 rows of 4M values
 CORPUS_READS = 64
 READ_MIN, READ_MAX = 2_000, 4_000_000
 REPEATS = 3
-CALLS = 10                 # launches per timed run
+CALLS = 10                 # launches per back-to-back timed run
 DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FLUSH_BYTES = 256 << 20    # zeroed before a cold call: over 5x the 50 MB L2
+RAGGED = np.array([1, 3, 4, 5, 4095, 4097, 16383, 16385], np.int32)
+
+# (cd_values, corpus content, kernel pair) of each main path, in run order.
+MAIN_PATHS = [
+    ((0, 2, 1, 0), "int16", "w2"),
+    ((0, 4, 1, 0), "int32_walk", "w4"),
+    ((1, 1, 1, 0), "int8_walk", "v1"),
+    ((0, 2, 0, 0), "adc_u16", "w4"),
+    ((1, 1, 0, 0), "u8", "v1"),
+    ((0, 1, 0, 0), "u8", "w4"),
+    ((0, 4, 0, 0), "u32", "w4"),
+]
+# kernel pair -> (names, source, replaced pallas_call sites: encode, decode)
+_OPS = "vbz_compression_tpu/ops/"
+PAIRS = {
+    "w2": (("w2_encode", "w2_decode"), "w2_codec.cu",
+           [_OPS + "pallas_codec5.py:930", _OPS + "pallas_codec5.py:495",
+            _OPS + "pallas_dense.py:311", _OPS + "pallas_codec3.py:433"],
+           [_OPS + "pallas_codec5.py:1039", _OPS + "pallas_codec5.py:841",
+            _OPS + "pallas_dense.py:522", _OPS + "pallas_codec3.py:632"]),
+    "w4": (("w4_encode", "w4_decode"), "w4_codec.cu",
+           [_OPS + "pallas_w4.py:188", _OPS + "pallas_codec3.py:762"],
+           [_OPS + "pallas_w4.py:338", _OPS + "pallas_codec3.py:869"]),
+    "v1": (("v1_encode", "v1_decode"), "v1_codec.cu",
+           [_OPS + "pallas_v1.py:264"], [_OPS + "pallas_v1.py:425"]),
+}
+# flavor of a kernel pair -> oracle arguments (integer_size, zigzag, version)
+ORACLE_ARGS = {
+    ("w2", "zz16"): (2, True, 0), ("w2", "zz8"): (1, True, 0),
+    ("w4", "zz32"): (4, True, 0), ("w4", "none32"): (4, False, 0),
+    ("w4", "none16"): (2, False, 0), ("w4", "none8"): (1, False, 0),
+    ("v1", "zz8"): (1, True, 1), ("v1", "none8"): (1, False, 1),
+}
+# The flavor each pair's headline time is taken on.
+HEADLINE = {"w2": ("zz16", "realistic"), "w4": ("zz32", "signal"),
+            "v1": ("zz8", "signal")}
 
 
-def kernel_cases(tier_rows: dict) -> list:
-    """(name, rows [B, N], lens [B], flavor) for the kernel-vs-plain phase."""
+class Port:
+    """The port's modules, imported once the card is known to be there."""
+
+    def __init__(self):
+        import torch
+
+        import vbz_compression_tpu_torch as pkg
+        from vbz_compression_tpu_torch import api, signals
+        from vbz_compression_tpu_torch.ops import _build, svb_v1, svb_w2, svb_w4
+
+        self.torch, self.pkg, self.api, self.signals = torch, pkg, api, signals
+        self.build = _build
+        self.mods = {"w2": svb_w2, "w4": svb_w4, "v1": svb_v1}
+        self.fns = {
+            "w2": (svb_w2.encode_w2_rows, svb_w2.encode_w2_rows_plain,
+                   svb_w2.decode_w2_rows, svb_w2.decode_w2_rows_plain),
+            "w4": (svb_w4.encode_w4_rows, svb_w4.encode_w4_rows_plain,
+                   svb_w4.decode_w4_rows, svb_w4.decode_w4_rows_plain),
+            "v1": (svb_v1.encode_v1_rows, svb_v1.encode_v1_rows_plain,
+                   svb_v1.decode_v1_rows, svb_v1.decode_v1_rows_plain),
+        }
+
+    def zero_counts(self) -> None:
+        for m in self.mods.values():
+            m.ENCODE_LAUNCHES = 0
+            m.DECODE_LAUNCHES = 0
+
+    def counts(self) -> dict:
+        return {k: (m.ENCODE_LAUNCHES, m.DECODE_LAUNCHES)
+                for k, m in self.mods.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _full(rows: np.ndarray) -> np.ndarray:
+    return np.full(rows.shape[0], rows.shape[1], np.int32)
+
+
+def w2_cases(sig, tier_rows: dict) -> list:
+    """(name, pair, flavor, rows [B, N], lens [B]) for kernels E and D."""
     rng = np.random.default_rng(5)
-    cases = [(f"tier {k}", v, np.full(B, N, np.int32), "zz16")
+    cases = [(f"tier {k}", "w2", "zz16", v, _full(v))
              for k, v in tier_rows.items()]
     wrap = np.tile(np.array([-32768, 32767], np.int16), (2, 32768))
-    cases.append(("wrap extremes", wrap, np.full(2, wrap.shape[1], np.int32),
-                  "zz16"))
+    cases.append(("wrap extremes", "w2", "zz16", wrap, _full(wrap)))
     n8 = 1 << 20
-    zz8 = np.stack([
-        np.clip(np.cumsum(rng.normal(0, 3, n8)), -100, 100).astype(np.int8),
-        rng.integers(-128, 128, n8).astype(np.int8),
-        np.full(n8, -7, np.int8)])
-    cases.append(("zz8", zz8, np.array([n8, n8 - 3, 4097], np.int32), "zz8"))
-    ragged_lens = np.array([1, 3, 4, 5, 4095, 4097, 16383, 16385], np.int32)
-    ragged = rng.integers(-32768, 32767, (ragged_lens.size, 16388),
-                          dtype=np.int16)  # tails are garbage: masked by lens
+    zz8 = np.stack([sig.int8_walk(rng, n8), sig.uniform(rng, n8, np.int8),
+                    np.full(n8, -7, np.int8)])
+    cases.append(("zz8", "w2", "zz8", zz8,
+                  np.array([n8, n8 - 3, 4097], np.int32)))
+    ragged = sig.uniform(rng, RAGGED.size * 16388, np.int16).reshape(
+        RAGGED.size, 16388)  # tails are garbage: masked by lens
     ragged[::2] = np.cumsum(rng.integers(-300, 300, (4, 16388)),
                             axis=1).astype(np.int16)
-    cases.append(("ragged", ragged, ragged_lens, "zz16"))
+    cases.append(("ragged", "w2", "zz16", ragged, RAGGED))
     n = min(1 << 20, N)
     unlike = np.stack([tier_rows["pure"][0, :n], tier_rows["hard"][0, :n],
                        np.full(n, 1234, np.int16), tier_rows["mixed"][-1, :n],
                        wrap[0, :n // 16].repeat(16),
                        tier_rows["realistic"][-1, :n]])
-    cases.append(("unlike rows", unlike,
-                  np.array([n, n - 1, n // 2, 3, 0, n - 4093], np.int32), "zz16"))
+    cases.append(("unlike rows", "w2", "zz16", unlike,
+                  np.array([n, n - 1, n // 2, 3, 0, n - 4093], np.int32)))
     return cases
 
 
-def check_kernels(torch, svb_w2, oracle, cases) -> dict:
-    """Kernels E and D against the plain versions on the same CUDA tensors;
-    returns the largest absolute difference seen per kernel (must be 0)."""
-    err = {"encode": 0, "decode": 0}
-    for name, rows, lens, flavor in cases:
+def w4_rows(sig, flavor: str, content: str) -> np.ndarray:
+    """[B, N] input of a W4 flavor: signal-like or uniform content."""
+    flavors = ("zz32", "none32", "none16", "none8")
+    rng = np.random.default_rng(100 + 2 * flavors.index(flavor)
+                                + (content == "uniform"))
+    dtype = {"zz32": np.int32, "none32": np.int32, "none16": np.int16,
+             "none8": np.int8}[flavor]
+    if content == "uniform":
+        return sig.uniform(rng, B * N, dtype).reshape(B, N)
+    make = {"zz32": sig.int32_walk, "none8": sig.int8_walk,
+            "none32": lambda r, n: sig.CORPUS_KINDS["u32"](r, n).view(np.int32),
+            "none16": lambda r, n: sig.adc_counts(r, n).view(np.int16)}[flavor]
+    return np.stack([make(rng, N) for _ in range(B)])
+
+
+def v1_rows(sig, flavor: str) -> np.ndarray:
+    """[B, N] int8 for v1: an int8 walk, uniform bytes, the odd-nibble
+    pattern and a walk with long zero runs."""
+    rng = np.random.default_rng(17 if flavor == "zz8" else 18)
+    runs = sig.int8_walk(rng, N)
+    runs[(np.arange(N) // 4096) % 2 == 0] = 0
+    return np.stack([sig.int8_walk(rng, N), sig.uniform(rng, N, np.int8),
+                     sig.v1_odd_nibbles(N), runs])
+
+
+def new_cases(sig) -> list:
+    """(name, pair, flavor, rows, lens) for E4/D4 and V1E/V1D."""
+    rng = np.random.default_rng(6)
+    cases = []
+    for flavor in ("zz32", "none32", "none16", "none8"):
+        for content in ("signal", "uniform"):
+            rows = w4_rows(sig, flavor, content)
+            cases.append((f"{flavor} {content}", "w4", flavor, rows,
+                          _full(rows)))
+    bounds = np.tile(np.array([0, 1, 255, 256, 65535, 65536, (1 << 24) - 1,
+                               1 << 24], np.int32), (2, 8192))
+    bounds[1] = -bounds[1]
+    cases.append(("code boundaries", "w4", "none32", bounds, _full(bounds)))
+    wrap = np.tile(np.array([-(1 << 31), (1 << 31) - 1], np.int32), (2, 32768))
+    cases.append(("32-bit wrap", "w4", "zz32", wrap, _full(wrap)))
+    ragged = sig.uniform(rng, RAGGED.size * 16388, np.int32).reshape(
+        RAGGED.size, 16388)
+    ragged[::2] = np.cumsum(rng.integers(-70000, 70000, (4, 16388)), axis=1)
+    cases.append(("ragged", "w4", "zz32", ragged, RAGGED))
+    cases.append(("ragged", "w4", "none16",
+                  ragged.astype(np.int16), RAGGED))
+    n = min(1 << 20, N)
+    unlike = np.stack([sig.int32_walk(rng, n), sig.uniform(rng, n, np.int32),
+                       np.full(n, 70000, np.int32), bounds[0, :n // 16].repeat(16),
+                       np.zeros(n, np.int32)])
+    unlike_lens = np.array([n, n - 1, n // 2, 3, 0], np.int32)
+    cases.append(("unlike rows", "w4", "none32", unlike, unlike_lens))
+    cases.append(("unlike rows", "w4", "zz32", unlike, unlike_lens))
+    for flavor in ("zz8", "none8"):
+        rows = v1_rows(sig, flavor)
+        cases.append(("mixed int8", "v1", flavor, rows, _full(rows)))
+        odd = sig.v1_odd_nibbles()[None]
+        cases.append(("odd nibbles", "v1", flavor, odd, _full(odd)))
+        ragged8 = sig.uniform(rng, RAGGED.size * 16388, np.int8).reshape(
+            RAGGED.size, 16388)
+        ragged8[::2] = sig.v1_odd_nibbles(4 * 16388).reshape(4, 16388)
+        cases.append(("ragged", "v1", flavor, ragged8, RAGGED))
+        unlike8 = np.stack([rows[0, :n], rows[1, :n], np.zeros(n, np.int8),
+                            np.full(n, 9, np.int8), rows[2, :n]])
+        cases.append(("unlike rows", "v1", flavor, unlike8, unlike_lens))
+    return cases
+
+
+def check_kernels(port: Port, cases) -> dict:
+    """Each pair's kernels against its plain versions on the same CUDA
+    tensors; returns the largest absolute difference seen per kernel name
+    (must be 0)."""
+    torch = port.torch
+    err = {}
+    for name, pair, flavor, rows, lens in cases:
+        enc, enc_plain, dec, dec_plain = port.fns[pair]
         x = torch.from_numpy(rows).to(DEVICE)
         n = torch.from_numpy(lens).to(DEVICE)
-        k1, d1, l1 = svb_w2.encode_w2_rows(x, n, flavor)
-        k0, d0, l0 = svb_w2.encode_w2_rows_plain(x, n, flavor)
+        k1, d1, l1 = enc(x, n, flavor)
+        k0, d0, l0 = enc_plain(x, n, flavor)
         written = torch.arange(d0.shape[1], device=DEVICE)[None, :] < l0[:, None]
         enc_err = max(
             int((l1 - l0).abs().max()),
             int((k1.int() - k0.int()).abs().max()),
             int((torch.where(written, d1, 0).int()
                  - torch.where(written, d0, 0).int()).abs().max()))
-        o1 = svb_w2.decode_w2_rows(k1, d1, n, flavor)
-        o0 = svb_w2.decode_w2_rows_plain(k1, d1, n, flavor)
+        o1 = dec(k1, d1, n, flavor)
+        o0 = dec_plain(k1, d1, n, flavor)
         valid = torch.arange(x.shape[1], device=DEVICE)[None, :] < n[:, None]
         want = torch.where(valid, x, 0)
-        dec_err = max(int((o1.int() - o0.int()).abs().max()),
-                      int((o1.int() - want.int()).abs().max()))
+        dec_err = max(int((o1.long() - o0.long()).abs().max()),
+                      int((o1.long() - want.long()).abs().max()))
         torch.cuda.synchronize()
         # One row against the NumPy oracle: the plain version is not the
         # only reference.
         r = int(np.argmax(lens))
         cnt = int(lens[r])
-        isz = rows.itemsize
         stream = (k1[r, :(cnt + 3) // 4].cpu().numpy().tobytes()
                   + d1[r, :int(l1[r])].cpu().numpy().tobytes())
-        oracle_ok = stream == oracle.svb_compress(rows[r, :cnt], isz, True, 0)
-        print(f"  {name:14s} [{rows.shape[0]}, {rows.shape[1]}] {flavor}: "
-              f"encode err {enc_err}, decode err {dec_err}, "
-              f"row {r} vs oracle {'ok' if oracle_ok else 'DIFFERS'}")
+        oracle_ok = stream == port.pkg.oracle.svb_compress(
+            rows[r, :cnt], *ORACLE_ARGS[(pair, flavor)])
+        print(f"  {pair} {flavor:6s} {name:16s} [{rows.shape[0]}, "
+              f"{rows.shape[1]}]: encode err {enc_err}, decode err "
+              f"{dec_err}, row {r} vs oracle "
+              f"{'ok' if oracle_ok else 'DIFFERS'}")
         if enc_err or dec_err or not oracle_ok:
-            raise SystemExit(f"kernel mismatch in case {name!r}")
-        err["encode"] = max(err["encode"], enc_err)
-        err["decode"] = max(err["decode"], dec_err)
+            raise SystemExit(f"kernel mismatch in case {pair} {flavor} "
+                             f"{name!r}")
+        e_name, d_name = PAIRS[pair][0]
+        err[e_name] = max(err.get(e_name, 0), enc_err)
+        err[d_name] = max(err.get(d_name, 0), dec_err)
     return err
 
 
-def cuda_ms(torch, fn) -> float:
+# ---------------------------------------------------------------------------
+# Phase 4: the main paths
+# ---------------------------------------------------------------------------
+
+
+def main_path(port: Port, reads, cd_values, pair: str) -> dict:
+    api, torch = port.api, port.torch
+    opts = port.pkg.CompressionOptions.from_cd_values(cd_values)
+    torch.cuda.synchronize()
+    port.zero_counts()
+    frames = api.vbz_compress_sized_batch(reads, opts)
+    back = api.vbz_decompress_sized_batch(frames, opts)
+    launches = port.counts()
+    enc_n, dec_n = launches[pair]
+    if not (enc_n > 0 and dec_n > 0):
+        raise SystemExit(f"main path {cd_values} did not launch both "
+                         f"{pair} kernels: {launches}")
+    for i, (r, f, b) in enumerate(zip(reads, frames, back)):
+        if f != api.vbz_compress_sized(r, opts, backend=port.pkg.oracle):
+            raise SystemExit(f"{cd_values} read {i}: frame differs from the "
+                             "NumPy oracle")
+        if not np.array_equal(np.frombuffer(b, r.dtype), r):
+            raise SystemExit(f"{cd_values} read {i}: round trip differs")
+    enc_s = dec_s = float("inf")
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        api.vbz_compress_sized_batch(reads, opts)
+        t1 = time.perf_counter()
+        api.vbz_decompress_sized_batch(frames, opts)
+        t2 = time.perf_counter()
+        enc_s, dec_s = min(enc_s, t1 - t0), min(dec_s, t2 - t1)
+    raw = sum(r.nbytes for r in reads)
+    out = {"options": list(cd_values), "content": str(reads[0].dtype),
+           "pair": pair, "reads": len(reads), "bytes": raw,
+           "frame_bytes": sum(len(f) for f in frames),
+           "launches": {k: list(v) for k, v in launches.items() if any(v)},
+           "enc_s": enc_s, "dec_s": dec_s,
+           "enc_gb_s": raw / enc_s / 1e9, "dec_gb_s": raw / dec_s / 1e9}
+    print(f"  options {cd_values} ({out['content']}): {len(reads)} reads, "
+          f"{raw} bytes -> {out['frame_bytes']} framed; every frame equals "
+          f"the oracle's, every read round-trips; launches "
+          f"{out['launches']}; host to host encode {out['enc_gb_s']:.3f} "
+          f"GB/s, decode {out['dec_gb_s']:.3f} GB/s (best of {REPEATS})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: times
+# ---------------------------------------------------------------------------
+
+
+def warm_ms(torch, fn) -> float:
     """ms per call: CALLS calls back to back between two CUDA events, best
     of REPEATS such runs, after one warm-up call."""
     fn()
@@ -128,67 +338,60 @@ def cuda_ms(torch, fn) -> float:
     return best
 
 
-def time_tiers(torch, svb_w2, tier_rows) -> dict:
-    out = {}
-    lens = torch.full((B,), N, dtype=torch.int32, device=DEVICE)
-    gb = B * N * 2 / 1e9
-    for name, rows in tier_rows.items():
-        x = torch.from_numpy(rows).to(DEVICE)
-        keys, data, _ = svb_w2.encode_w2_rows(x, lens, "zz16")
-        t = {
-            "enc_ms": cuda_ms(torch, lambda: svb_w2.encode_w2_rows(
-                x, lens, "zz16")),
-            "enc_plain_ms": cuda_ms(torch, lambda: svb_w2.encode_w2_rows_plain(
-                x, lens, "zz16")),
-            "dec_ms": cuda_ms(torch, lambda: svb_w2.decode_w2_rows(
-                keys, data, lens, "zz16")),
-            "dec_plain_ms": cuda_ms(torch, lambda: svb_w2.decode_w2_rows_plain(
-                keys, data, lens, "zz16")),
-        }
-        for k in ("enc", "enc_plain", "dec", "dec_plain"):
-            t[k + "_gb_s"] = gb / (t[k + "_ms"] / 1e3)
-        out[name] = t
-        print(f"  {name:9s} encode {t['enc_gb_s']:8.2f} GB/s "
-              f"(plain {t['enc_plain_gb_s']:7.2f})  decode "
-              f"{t['dec_gb_s']:8.2f} GB/s (plain {t['dec_plain_gb_s']:7.2f})")
-    return out
-
-
-def main_path(torch, port, tapi, svb_w2, reads, cd_values) -> dict:
-    opts = port.CompressionOptions.from_cd_values(cd_values)
-    torch.cuda.synchronize()
-    svb_w2.ENCODE_LAUNCHES = 0
-    svb_w2.DECODE_LAUNCHES = 0
-    frames = tapi.vbz_compress_sized_batch(reads, opts)
-    back = tapi.vbz_decompress_sized_batch(frames, opts)
-    launches = {"encode": svb_w2.ENCODE_LAUNCHES,
-                "decode": svb_w2.DECODE_LAUNCHES}
-    if not (launches["encode"] > 0 and launches["decode"] > 0):
-        raise SystemExit(f"main path did not launch both kernels: {launches}")
-    for i, (r, f, b) in enumerate(zip(reads, frames, back)):
-        if f != tapi.vbz_compress_sized(r, opts, backend=port.oracle):
-            raise SystemExit(f"read {i}: frame differs from the NumPy oracle")
-        if not np.array_equal(np.frombuffer(b, np.int16), r):
-            raise SystemExit(f"read {i}: round trip differs")
-    enc_s = dec_s = float("inf")
+def cold_ms(torch, fn, flush) -> float:
+    """ms of one call with the L2 flushed just before it (a 256 MiB buffer
+    zeroed), the device kept busy while the host enqueues so that launch
+    gaps stay out; best of REPEATS."""
+    best = float("inf")
     for _ in range(REPEATS):
-        t0 = time.perf_counter()
-        tapi.vbz_compress_sized_batch(reads, opts)
-        t1 = time.perf_counter()
-        tapi.vbz_decompress_sized_batch(frames, opts)
-        t2 = time.perf_counter()
-        enc_s, dec_s = min(enc_s, t1 - t0), min(dec_s, t2 - t1)
-    raw = sum(r.nbytes for r in reads)
-    out = {"options": list(cd_values), "reads": len(reads), "bytes": raw,
-           "frame_bytes": sum(len(f) for f in frames), "launches": launches,
-           "enc_s": enc_s, "dec_s": dec_s,
-           "enc_gb_s": raw / enc_s / 1e9, "dec_gb_s": raw / dec_s / 1e9}
-    print(f"  options {cd_values}: {len(reads)} reads, {raw} bytes -> "
-          f"{out['frame_bytes']} framed; every frame equals the oracle's, "
-          f"every read round-trips; launches {launches}; host to host "
-          f"encode {out['enc_gb_s']:.3f} GB/s, decode {out['dec_gb_s']:.3f} "
-          "GB/s (best of 3)")
-    return out
+        torch.cuda._sleep(2_000_000)
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def time_pair(port: Port, label: str, rows: np.ndarray, flush) -> dict:
+    """Kernel (cold and warm) and plain times of one pair on [B, N] rows,
+    with the bound of each direction: bytes it must move (input read once,
+    output written once) over the card's memory rate."""
+    torch = port.torch
+    pair, flavor, _ = label.split()
+    enc, enc_plain, dec, dec_plain = port.fns[pair]
+    x = torch.from_numpy(rows).to(DEVICE)
+    lens = torch.from_numpy(_full(rows)).to(DEVICE)
+    keys, data, data_len = enc(x, lens, flavor)
+    raw = rows.nbytes
+    stream = keys.numel() + int(data_len.sum())
+    enc_bytes = raw + lens.nbytes + stream + data_len.nbytes
+    dec_bytes = stream + lens.nbytes + raw
+    t = {
+        "enc_ms": cold_ms(torch, lambda: enc(x, lens, flavor), flush),
+        "enc_warm_ms": warm_ms(torch, lambda: enc(x, lens, flavor)),
+        "enc_plain_ms": warm_ms(torch, lambda: enc_plain(x, lens, flavor)),
+        "dec_ms": cold_ms(torch, lambda: dec(keys, data, lens, flavor), flush),
+        "dec_warm_ms": warm_ms(torch, lambda: dec(keys, data, lens, flavor)),
+        "dec_plain_ms": warm_ms(torch, lambda: dec_plain(keys, data, lens,
+                                                         flavor)),
+        "enc_bytes": enc_bytes, "dec_bytes": dec_bytes,
+        "enc_bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3,
+        "dec_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
+        "input_bytes": raw, "stream_bytes": stream,
+    }
+    for k in ("enc", "enc_warm", "enc_plain", "dec", "dec_warm",
+              "dec_plain"):
+        t[k + "_gb_s"] = raw / (t[k + "_ms"] / 1e3) / 1e9
+    print(f"  {label:18s} encode {t['enc_ms']:.4f} ms cold, "
+          f"{t['enc_warm_ms']:.4f} warm, plain {t['enc_plain_ms']:.3f}, "
+          f"bound {t['enc_bound_ms']:.4f}; decode {t['dec_ms']:.4f} cold, "
+          f"{t['dec_warm_ms']:.4f} warm, plain {t['dec_plain_ms']:.3f}, "
+          f"bound {t['dec_bound_ms']:.4f} ({raw / 1e6:.1f} MB in)")
+    return t
 
 
 def main() -> int:
@@ -198,11 +401,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
-    import vbz_compression_tpu_torch as port
-    from vbz_compression_tpu_torch import api as tapi
-    from vbz_compression_tpu_torch import signals
-    from vbz_compression_tpu_torch.ops import _build, svb_w2
-
+    t_phase = time.perf_counter()
+    port = Port()
+    sig = port.signals
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -211,55 +412,84 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     os.environ.pop("VBZ_BACKEND", None)  # the main path is the CUDA default
+    seconds = {}
+
+    def lap(phase: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[phase] = now - t_phase
+        print(f"phase {phase}: {seconds[phase]:.1f} s")
+        t_phase = now
+
+    lap("1 device")
 
     # Phase 2: build.
-    path, seconds = _build.build()
-    _build.lib()
-    print(f"build: {path.relative_to(_build.BUILD_ROOT.parent.parent)} "
-          f"in {seconds:.1f} s")
+    for name, (path, secs) in port.build.build_all().items():
+        port.build.lib(name)
+        print(f"build: {path.relative_to(port.build.BUILD_ROOT.parent.parent)}"
+              f" in {secs:.1f} s")
+    lap("2 build")
 
     # Phase 3: kernels against the plain versions.
     print("kernels against plain:")
-    tier_rows = signals.tiers(B, N)
-    err = check_kernels(torch, svb_w2, port.oracle, kernel_cases(tier_rows))
+    tier_rows = sig.tiers(B, N)
+    err = check_kernels(port, w2_cases(sig, tier_rows) + new_cases(sig))
+    lap("3 kernels")
 
-    # Phase 4: the main path.
-    print("main path:")
-    reads = signals.corpus(CORPUS_READS, READ_MIN, READ_MAX)
-    runs = [main_path(torch, port, tapi, svb_w2, reads,
-                      (0, 2, 1, 0))]
+    # Phase 4: the main paths.
+    print("main paths:")
+    reads16 = sig.corpus(CORPUS_READS, READ_MIN, READ_MAX)
+    lengths = [r.size for r in reads16]
+    runs = []
+    for cd_values, content, pair in MAIN_PATHS:
+        reads = reads16 if content == "int16" else sig.corpus_of(content,
+                                                                 lengths)
+        runs.append(main_path(port, reads, cd_values, pair))
+        del reads
+    lap("4 main paths")
 
     # Phase 5: times.
-    print(f"times on {smi}, GB/s of int16 input, best of {REPEATS}:")
-    times = time_tiers(torch, svb_w2, tier_rows)
-    if "jax" in sys.modules:
-        raise SystemExit("jax was imported")
+    print(f"times on {smi}, [{B}, {N}] per call, best of {REPEATS}:")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    inputs = {f"w2 zz16 {k}": v for k, v in tier_rows.items()}
+    for flavor in ("zz32", "none32", "none16", "none8"):
+        inputs[f"w4 {flavor} signal"] = w4_rows(sig, flavor, "signal")
+    inputs["w4 zz32 uniform"] = w4_rows(sig, "zz32", "uniform")
+    walk8 = np.stack([sig.int8_walk(np.random.default_rng(b), N)
+                      for b in range(B)])
+    inputs["v1 zz8 signal"] = inputs["v1 none8 signal"] = walk8
+    inputs["v1 zz8 uniform"] = sig.uniform(np.random.default_rng(9), B * N,
+                                           np.int8).reshape(B, N)
+    times = {label: time_pair(port, label, rows, flush)
+             for label, rows in inputs.items()}
+    lap("5 times")
+    for mod in ("jax", "vbz_compression_tpu"):
+        if mod in sys.modules or any(m.startswith(mod + ".")
+                                     for m in sys.modules):
+            raise SystemExit(f"{mod} was imported")
 
-    head = times["realistic"]
-    where = "vbz_compression_tpu/ops/"
-    kernels = [
-        {"name": "w2_encode", "route": "cuda",
-         "source": "vbz_compression_tpu_torch/csrc/w2_codec.cu",
-         "replaces": where + "pallas_codec5.py:930",
-         "also_replaces": [where + "pallas_codec5.py:495",
-                           where + "pallas_dense.py:311",
-                           where + "pallas_codec3.py:433"],
-         "launches": runs[0]["launches"]["encode"],
-         "max_abs_err": err["encode"],
-         "ms": head["enc_ms"], "plain_ms": head["enc_plain_ms"],
-         "timed_on": f"realistic tier [{B}, {N}] int16"},
-        {"name": "w2_decode", "route": "cuda",
-         "source": "vbz_compression_tpu_torch/csrc/w2_codec.cu",
-         "replaces": where + "pallas_codec5.py:1039",
-         "also_replaces": [where + "pallas_codec5.py:841",
-                           where + "pallas_dense.py:522",
-                           where + "pallas_codec3.py:632"],
-         "launches": runs[0]["launches"]["decode"],
-         "max_abs_err": err["decode"],
-         "ms": head["dec_ms"], "plain_ms": head["dec_plain_ms"],
-         "timed_on": f"realistic tier [{B}, {N}] int16"},
-    ]
-    print(json.dumps({"tiers": times, "main_path": runs, "card": smi}))
+    kernels = []
+    for pair, ((e_name, d_name), src, enc_sites, dec_sites) in PAIRS.items():
+        flavor, content = HEADLINE[pair]
+        head = times[f"{pair} {flavor} {content}"]
+        for d, name, sites in (("enc", e_name, enc_sites),
+                               ("dec", d_name, dec_sites)):
+            idx = 0 if d == "enc" else 1
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "vbz_compression_tpu_torch/csrc/" + src,
+                "replaces": sites[0], "also_replaces": sites[1:],
+                "launches": sum(r["launches"].get(pair, [0, 0])[idx]
+                                for r in runs),
+                "max_abs_err": err[name],
+                "ms": head[d + "_ms"], "plain_ms": head[d + "_plain_ms"],
+                "bound_ms": head[d + "_bound_ms"], "bound_by": "bytes",
+                "library_ms": None,
+                "warm_ms": head[d + "_warm_ms"],
+                "timed_on": f"{pair} {flavor} {content} [{B}, {N}], L2 "
+                            "flushed before the call"})
+    print(json.dumps({"times": times, "main_paths": runs, "card": smi,
+                      "seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """The port's sized pipeline (``vbz_compression_tpu_torch.api``) as a whole,
 against the JAX package's pipeline on its XLA backend: identical sized
-frames at zstd levels 0 and 1, frames from either side decoding on the
-other, and the backend choice."""
+frames at zstd levels 0 and 1 for every flavor of the v0/v1 option lattice,
+frames from either side decoding on the other, the backend choice, and a
+port that imports nothing of the JAX package."""
 
 import os
 import subprocess
@@ -14,6 +15,7 @@ import torch
 from vbz_compression_tpu import api as jax_api
 from vbz_compression_tpu.models.codec import JaxSvbBackend
 from vbz_compression_tpu.options import CompressionOptions
+from vbz_compression_tpu_torch import CompressionOptions as PortOptions
 from vbz_compression_tpu_torch import api, oracle, signals, stage_profile
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
 
@@ -121,16 +123,83 @@ def test_default_backend_choice(monkeypatch):
     assert api.default_backend().device.type == "cuda"
 
 
+# cd_values (at zstd level 0) of the W4 flavors and v1 int8, with the
+# content the pipeline gets for each.
+_NEW_OPTIONS = [((0, 4, 1), np.int32), ((0, 4, 0), np.uint32),
+                ((0, 2, 0), np.uint16), ((0, 1, 0), np.uint8),
+                ((1, 1, 1), np.int8), ((1, 1, 0), np.uint8)]
+
+
+@pytest.mark.parametrize("cd,dtype", _NEW_OPTIONS)
+@pytest.mark.parametrize("level", [0, 1])
+def test_new_flavor_frames_match_jax_pipeline(torch_cpu, cd, dtype, level):
+    """W4 flavors and v1 int8 through the batch and single-chunk entry
+    points: the JAX pipeline's frames, and each side decodes the other's."""
+    ours = PortOptions.from_cd_values((*cd, level))
+    theirs = CompressionOptions.from_cd_values((*cd, level))
+    chunks = _chunks(dtype, seed=sum(cd) + level)
+    frames = api.vbz_compress_sized_batch(chunks, ours)
+    for c, f in zip(chunks, frames):
+        jf = jax_api.vbz_compress_sized(c, theirs, backend=JAX_BACKEND)
+        assert f == jf
+        assert api.vbz_compress_sized(c, ours) == jf
+        np.testing.assert_array_equal(
+            np.frombuffer(api.vbz_decompress_sized(jf, ours), dtype), c)
+        np.testing.assert_array_equal(
+            np.frombuffer(jax_api.vbz_decompress_sized(
+                f, theirs, backend=JAX_BACKEND), dtype), c)
+    for c, b in zip(chunks, api.vbz_decompress_sized_batch(frames, ours)):
+        np.testing.assert_array_equal(np.frombuffer(b, dtype), c)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint16, np.uint8, np.uint32])
+def test_dtype_inferred_flavors_match_jax(torch_cpu, dtype):
+    """``compress(arr)`` infers the flavor from the dtype as pyvbz does
+    (int32 is zz32, the unsigned dtypes the none flavors) at zstd level 1."""
+    sig = _chunks(dtype, seed=9)[0]
+    ours = api.compress(sig)
+    np.testing.assert_array_equal(ours,
+                                  jax_api.compress(sig, backend=JAX_BACKEND))
+    np.testing.assert_array_equal(api.decompress(ours, dtype), sig)
+
+
+def test_sizes_and_encoder_choice(monkeypatch):
+    for cd in [(0, 2, 1, 1), (0, 4, 0, 0), (1, 1, 1, 1), (0, 0, 0, 1)]:
+        assert api.vbz_max_compressed_size(
+            12345 * 4, PortOptions.from_cd_values(cd)) == \
+            jax_api.vbz_max_compressed_size(
+                12345 * 4, CompressionOptions.from_cd_values(cd))
+    for encoder in ("own", "own-tpu"):
+        monkeypatch.setenv("VBZ_ZSTD_ENCODER", encoder)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            api.zstd_compress(b"abc", 1)
+    monkeypatch.setenv("VBZ_ZSTD_ENCODER", "libzstd")
+    assert api.zstd_decompress(api.zstd_compress(b"abc" * 99, 1), 297) == \
+        b"abc" * 99
+
+
 def test_import_leaves_jax_out():
+    """Every module of the port, and chip_smoke.py, import nothing of JAX or
+    of the JAX package."""
     code = ("import sys\n"
+            "import chip_smoke\n"
             "import vbz_compression_tpu_torch\n"
             "import vbz_compression_tpu_torch.api\n"
+            "import vbz_compression_tpu_torch.errors\n"
+            "import vbz_compression_tpu_torch.options\n"
+            "import vbz_compression_tpu_torch.signals\n"
             "import vbz_compression_tpu_torch.models.codec\n"
-            "import vbz_compression_tpu_torch.ops.svb_w2\n"
             "import vbz_compression_tpu_torch.ops._build\n"
+            "import vbz_compression_tpu_torch.ops._rows\n"
+            "import vbz_compression_tpu_torch.ops.scalar\n"
+            "import vbz_compression_tpu_torch.ops.svb_v1\n"
+            "import vbz_compression_tpu_torch.ops.svb_w2\n"
+            "import vbz_compression_tpu_torch.ops.svb_w4\n"
             "import vbz_compression_tpu_torch.stage_profile\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib')))\n"
+            "chip_smoke.Port()\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+            "'vbz_compression_tpu') or m.startswith(('jax.', 'jaxlib.', "
+            "'vbz_compression_tpu.')))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

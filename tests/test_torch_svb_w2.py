@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from vbz_compression_tpu.ops import pallas_codec3 as pc3
+from vbz_compression_tpu.ops import pallas_codec4 as pc4
 from vbz_compression_tpu.ops import pallas_codec5 as pc5
 from vbz_compression_tpu.ops import pallas_dense as pcd
 from vbz_compression_tpu.ops import scalar
@@ -224,3 +225,79 @@ def test_decode_rejects_bad_arguments():
         svb_w2.decode_w2_rows(keys.to(torch.int8), data, counts, "zz16")
     with pytest.raises(ValueError):
         svb_w2.decode_w2_rows(keys, data, counts, "zz32")
+
+
+def test_batch_rows_match_pallas3_batch():
+    """test_pallas3_batch_rows_independent's batch: pallas_codec3's batched
+    W2 kernels (chunks under 16384 values) against E/D's plain versions, row
+    for row."""
+    rng = np.random.default_rng(4)
+    B, N, block = 2, 1024, 512
+    rows = np.stack([_walk(rng, N) for _ in range(B)])
+    with pltpu.force_tpu_interpret_mode():
+        jkeys, jdata, jlens = pc3.encode_w2_batch(jnp.asarray(rows),
+                                                  block=block)
+        boffs = pc3.block_offsets_from_keys_batch(jkeys, block)
+        jout = pc3.decode_w2_batch(jkeys, jdata, boffs, block=block)
+    streams, keys, data, dlen = _encode(rows, [N] * B, "zz16")
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys))
+    np.testing.assert_array_equal(dlen.numpy(), np.asarray(jlens))
+    jdata = np.asarray(jdata).astype(np.uint8)
+    for b in range(B):
+        assert streams[b] == np.asarray(jkeys)[b].tobytes() + \
+            jdata[b, :int(jlens[b])].tobytes()
+        assert streams[b] == scalar.svb_compress(rows[b], 2, True, 0)
+    out = _decode(keys, data, [N] * B, "zz16")
+    np.testing.assert_array_equal(out, np.asarray(jout))
+    np.testing.assert_array_equal(out, rows)
+
+
+def _pallas4_case(name: str):
+    """(signal, block, slack, flavor) of each test_pallas4_* round trip."""
+    if name == "signal":
+        return _walk(np.random.default_rng(0), 4096), 512, 256, "zz16"
+    if name == "mixed_codes":
+        return np.cumsum(np.random.default_rng(7).integers(
+            -400, 400, 4096)).astype(np.int16), 512, 512, "zz16"
+    if name == "constant":
+        return np.full(2048, 123, np.int16), 512, 128, "zz16"
+    if name == "overflow_flag":
+        return (np.arange(2048, dtype=np.int32) * 200).astype(
+            np.int16), 512, 128, "zz16"
+    if name == "wrap_extremes":
+        return np.tile(np.array([-32768, 32767], np.int16), 1024), 512, \
+            128, "zz16"
+    assert name == "zz8"
+    return np.clip(np.cumsum(np.random.default_rng(1).normal(0, 3, 2048)),
+                   -100, 100).astype(np.int8), 512, 256, "zz8"
+
+
+@pytest.mark.parametrize("name", ["signal", "mixed_codes", "constant",
+                                  "overflow_flag", "wrap_extremes", "zz8"])
+def test_matches_pallas4(name):
+    """The test_pallas4_* inputs: pallas_codec4's superseded W2 kernels
+    against E/D's plain versions. Where codec4 flags an overflow (its slack
+    is too small for the block) the port has no such limit and matches the
+    oracle."""
+    sig, block, slack, flavor = _pallas4_case(name)
+    N = sig.size
+    ref = scalar.svb_compress(sig, _SIZE[flavor], True, 0)
+    keysA = np.frombuffer(ref[: N // 4], np.uint8)
+    datab = np.frombuffer(ref[N // 4:], np.uint8)
+    with pltpu.force_tpu_interpret_mode():
+        jkeys, jdata, total, ovf = pc4.encode_w2(
+            jnp.asarray(sig), block=block, flavor=flavor, slack=slack)
+        if not int(ovf):
+            jout = pc4.decode_w2(
+                jnp.asarray(keysA), jnp.asarray(datab.astype(np.int32)),
+                pc4.block_offsets_from_keys(jnp.asarray(keysA), block),
+                block=block, flavor=flavor, slack=slack)
+    assert bool(int(ovf)) == (name == "overflow_flag")
+    streams, keys, data, _ = _encode(sig[None], [N], flavor)
+    assert streams[0] == ref
+    out = _decode(keys, data, [N], flavor)[0]
+    np.testing.assert_array_equal(out, sig)
+    if not int(ovf):
+        assert streams[0] == np.asarray(jkeys).tobytes() + np.asarray(
+            jdata).astype(np.uint8).tobytes()[: int(total)]
+        np.testing.assert_array_equal(out, np.asarray(jout))

@@ -1,9 +1,13 @@
-"""The VBZ sized pipeline on the PyTorch backend.
+"""The VBZ sized pipeline on the PyTorch backend — the ``vbz.h`` C-ABI
+surface, in Python.
 
-Thin: option validation, the zstd stage and the 4-byte sized framing are the
-JAX package's host code (``vbz_compression_tpu.api``, which imports no JAX);
-each function here calls it with ``backend=`` set to a
-:class:`~.models.codec.TorchSvbBackend`.
+The port's own copy of the pipeline in ``vbz_compression_tpu.api`` (the
+reference ``vbz/vbz.cpp``): option validation, v0/v1 version dispatch, the
+optional StreamVByte stage, the optional zstd stage (host-side libzstd
+through the ``zstandard`` package, imported when a level above 0 is used)
+and the 4-byte little-endian sized framing. The StreamVByte stage is the
+``backend=`` argument: a :class:`~.models.codec.TorchSvbBackend`, or any
+object with the same methods, such as the NumPy oracle (``oracle``).
 
 ``default_backend()`` is the CUDA backend when a card is visible. Setting
 ``VBZ_BACKEND=torch`` chooses the plain PyTorch version on the CPU instead.
@@ -13,12 +17,22 @@ Without either it raises: nothing moves silently to another codec.
 from __future__ import annotations
 
 import os
+import struct
 
+import numpy as np
 import torch
 
-from vbz_compression_tpu import api as _pipeline
-
+from .errors import (
+    VBZ_DESTINATION_SIZE_ERROR,
+    VBZ_INPUT_SIZE_ERROR,
+    VBZ_ZSTD_ERROR,
+    VbzError,
+)
 from .models.codec import TorchSvbBackend
+from .ops import scalar
+from .options import CompressionOptions
+
+SIZED_HEADER_BYTES = 4  # VbzSizedHeader{uint32 original_size}, vbz/vbz.cpp:52-55
 
 
 def default_backend() -> TorchSvbBackend:
@@ -38,32 +52,281 @@ def _resolved(backend):
     return default_backend() if backend is None else backend
 
 
-def vbz_compress_sized(data, options, backend=None) -> bytes:
-    return _pipeline.vbz_compress_sized(data, options,
-                                        backend=_resolved(backend))
+def _as_bytes(data) -> bytes:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return bytes(data)
+    return np.ascontiguousarray(data).tobytes()
 
 
-def vbz_decompress_sized(stream, options, backend=None) -> bytes:
-    return _pipeline.vbz_decompress_sized(stream, options,
-                                          backend=_resolved(backend))
+# ---------------------------------------------------------------------------
+# zstd stage (host-side libzstd; frame-compatible with the reference)
+# ---------------------------------------------------------------------------
 
 
-def vbz_compress_sized_batch(chunks, options, backend=None) -> list:
-    return _pipeline.vbz_compress_sized_batch(chunks, options,
-                                              backend=_resolved(backend))
+def zstd_compress_bound(source_size: int) -> int:
+    """The public ``ZSTD_COMPRESSBOUND`` formula (zstd.h macro)."""
+    margin = ((128 << 10) - source_size) >> 11 if source_size < (128 << 10) else 0
+    return source_size + (source_size >> 8) + margin
 
 
-def vbz_decompress_sized_batch(streams, options, backend=None) -> list:
-    return _pipeline.vbz_decompress_sized_batch(streams, options,
-                                                backend=_resolved(backend))
+def zstd_compress(data: bytes, level: int) -> bytes:
+    """zstd stage through libzstd (the ``zstandard`` package), with the tuned
+    level-1 dfast profile below. ``VBZ_ZSTD_ENCODER``, where set, must be
+    "libzstd": the JAX package's from-scratch encoders ("own", "own-tpu")
+    are not ported yet."""
+    encoder = os.environ.get("VBZ_ZSTD_ENCODER", "libzstd")
+    if encoder in ("own", "own-tpu"):
+        raise NotImplementedError(
+            f"VBZ_ZSTD_ENCODER={encoder!r}: the from-scratch zstd encoders "
+            "are not ported yet (ROADMAP Queue 1 item 9)")
+    if encoder != "libzstd":
+        raise ValueError(f"unknown zstd encoder {encoder!r} (want libzstd)")
+    import zstandard
+
+    level = max(min(int(level), zstandard.MAX_COMPRESSION_LEVEL), -131072)
+    try:
+        if level == 1:
+            # Level-1 profile tuned on the signal corpus: double-fast matcher
+            # with a 512 KiB window compresses StreamVByte payloads tighter
+            # than stock level 1 at equivalent speed. The zstd level is an
+            # encoder-only knob — decode compatibility is unaffected.
+            params = zstandard.ZstdCompressionParameters(
+                window_log=19, chain_log=14, hash_log=16, search_log=1,
+                min_match=5, target_length=0,
+                strategy=zstandard.STRATEGY_DFAST,
+                write_checksum=0, write_content_size=1)
+            cctx = zstandard.ZstdCompressor(compression_params=params)
+        else:
+            cctx = zstandard.ZstdCompressor(
+                level=level, write_checksum=False, write_content_size=True)
+        return cctx.compress(data)
+    except zstandard.ZstdError as exc:  # pragma: no cover
+        raise VbzError(VBZ_ZSTD_ERROR, str(exc))
 
 
-def compress(data, options=None, backend=None):
-    """pyvbz-style: numpy array -> sized stream as a uint8 array."""
-    return _pipeline.compress(data, options, backend=_resolved(backend))
+def zstd_frame_content_size(data: bytes) -> int:
+    """``ZSTD_getFrameContentSize`` equivalent; raises VBZ_ZSTD_ERROR when the
+    frame is invalid or the content size is unknown (``vbz/vbz.cpp:236-240``)."""
+    import zstandard
+
+    try:
+        params = zstandard.get_frame_parameters(data)
+    except zstandard.ZstdError as exc:
+        raise VbzError(VBZ_ZSTD_ERROR, str(exc))
+    if params.content_size in (zstandard.CONTENTSIZE_UNKNOWN,
+                               zstandard.CONTENTSIZE_ERROR):
+        raise VbzError(VBZ_ZSTD_ERROR, "unknown frame content size")
+    return int(params.content_size)
 
 
-def decompress(data, dtype, options=None, backend=None):
-    """pyvbz-style: sized stream -> numpy array of ``dtype``."""
-    return _pipeline.decompress(data, dtype, options,
-                                backend=_resolved(backend))
+def zstd_decompress(data: bytes, expected_size: int) -> bytes:
+    import zstandard
+
+    try:
+        dctx = zstandard.ZstdDecompressor()
+        return dctx.decompress(data, max_output_size=max(expected_size, 1))
+    except zstandard.ZstdError as exc:
+        raise VbzError(VBZ_ZSTD_ERROR, str(exc))
+
+
+def _map_zstd(fn, items: list) -> list:
+    """Run the host zstd stage across chunks on a thread pool (libzstd
+    releases the GIL); a plain loop for one chunk or one core."""
+    if len(items) <= 1 or (os.cpu_count() or 1) <= 1:
+        return [fn(x) for x in items]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(
+            max_workers=min(len(items), os.cpu_count())) as pool:
+        return list(pool.map(fn, items))
+
+
+# ---------------------------------------------------------------------------
+# Core API (mirrors vbz/vbz.h:56-141)
+# ---------------------------------------------------------------------------
+
+
+def vbz_max_compressed_size(source_size: int, options: CompressionOptions) -> int:
+    """Worst-case compressed size incl. the sized header (``vbz/vbz.cpp:79-114``)."""
+    options.validate().validate_version()
+    max_size = source_size
+    if options.integer_size != 0:
+        max_size = scalar.svb_max_compressed_size(options.integer_size, source_size)
+    if options.zstd_compression_level != 0:
+        max_size = zstd_compress_bound(max_size)
+    return max_size + SIZED_HEADER_BYTES
+
+
+def vbz_compress(data, options: CompressionOptions, backend=None) -> bytes:
+    """Compress without framing (``vbz/vbz.cpp:116-208``)."""
+    backend = _resolved(backend)
+    options.validate()
+    raw = _as_bytes(data)
+    if options.zstd_compression_level == 0 and options.integer_size == 0:
+        return raw
+    current = raw
+    if options.integer_size != 0:
+        options.validate_version()
+        current = bytes(backend.svb_compress(
+            raw, options.integer_size, options.perform_delta_zig_zag,
+            options.vbz_version))
+    if options.zstd_compression_level == 0:
+        return current
+    return zstd_compress(current, options.zstd_compression_level)
+
+
+def _check_destination(size: int, options: CompressionOptions) -> int:
+    """Values in a destination of ``size`` bytes."""
+    if size % options.integer_size != 0:
+        raise VbzError(VBZ_DESTINATION_SIZE_ERROR,
+                       f"{size} % {options.integer_size} != 0")
+    return size // options.integer_size
+
+
+def vbz_decompress(stream, destination_size: int, options: CompressionOptions,
+                   backend=None) -> bytes:
+    """Decompress a stream into exactly ``destination_size`` bytes
+    (``vbz/vbz.cpp:210-300``)."""
+    backend = _resolved(backend)
+    options.validate()
+    raw = _as_bytes(stream)
+    if options.zstd_compression_level == 0 and options.integer_size == 0:
+        if len(raw) > destination_size:
+            raise VbzError(VBZ_DESTINATION_SIZE_ERROR)
+        return raw
+    current = raw
+    if options.zstd_compression_level != 0:
+        content_size = zstd_frame_content_size(raw)
+        if options.integer_size == 0 and content_size > destination_size:
+            raise VbzError(VBZ_DESTINATION_SIZE_ERROR)
+        current = zstd_decompress(raw, content_size)
+    if options.integer_size == 0:
+        return current
+    options.validate_version()
+    count = _check_destination(destination_size, options)
+    out = backend.svb_decompress(
+        current, count, options.integer_size, options.perform_delta_zig_zag,
+        options.vbz_version)
+    return np.ascontiguousarray(out).tobytes()
+
+
+def vbz_compress_sized(data, options: CompressionOptions, backend=None) -> bytes:
+    """Compress with the 4-byte little-endian original-size header
+    (``vbz/vbz.cpp:302-330``)."""
+    raw = _as_bytes(data)
+    header = struct.pack("<I", len(raw))
+    return header + vbz_compress(raw, options, backend=backend)
+
+
+def vbz_decompressed_size(stream, options: CompressionOptions) -> int:
+    """Read the original size from a sized stream (``vbz/vbz.cpp:369-386``)."""
+    options.validate()
+    raw = _as_bytes(stream)
+    if len(raw) < SIZED_HEADER_BYTES:
+        raise VbzError(VBZ_INPUT_SIZE_ERROR, "stream shorter than sized header")
+    return struct.unpack_from("<I", raw)[0]
+
+
+def vbz_decompress_sized(stream, options: CompressionOptions,
+                         backend=None) -> bytes:
+    """Inverse of :func:`vbz_compress_sized` (``vbz/vbz.cpp:332-367``)."""
+    options.validate()
+    raw = _as_bytes(stream)
+    original_size = vbz_decompressed_size(raw, options)
+    return vbz_decompress(raw[SIZED_HEADER_BYTES:], original_size, options,
+                          backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Batch API: a backend with svb_*_batch methods gets every chunk of the call
+# at once (one padded batch on the card); other backends loop.
+# ---------------------------------------------------------------------------
+
+
+def vbz_compress_sized_batch(chunks, options: CompressionOptions,
+                             backend=None) -> list:
+    """Sized-compress many chunks in one StreamVByte batch."""
+    backend = _resolved(backend)
+    options.validate()
+    raws = [_as_bytes(c) for c in chunks]
+    headers = [struct.pack("<I", len(r)) for r in raws]
+    current = raws
+    if options.integer_size != 0:
+        options.validate_version()
+        args = (options.integer_size, options.perform_delta_zig_zag,
+                options.vbz_version)
+        batch_fn = getattr(backend, "svb_compress_batch", None)
+        if batch_fn is not None:
+            current = batch_fn(raws, *args)
+        else:
+            current = [backend.svb_compress(r, *args) for r in raws]
+        current = [bytes(x) for x in current]
+    if options.zstd_compression_level != 0:
+        current = _map_zstd(
+            lambda x: zstd_compress(x, options.zstd_compression_level),
+            current)
+    return [h + bytes(x) for h, x in zip(headers, current)]
+
+
+def vbz_decompress_sized_batch(streams, options: CompressionOptions,
+                               backend=None) -> list:
+    """Inverse of :func:`vbz_compress_sized_batch`; returns a list of
+    ``bytes`` (each chunk's original buffer)."""
+    backend = _resolved(backend)
+    options.validate()
+    raws = [_as_bytes(s) for s in streams]
+    sizes = [vbz_decompressed_size(r, options) for r in raws]
+    bodies = [r[SIZED_HEADER_BYTES:] for r in raws]
+    if options.zstd_compression_level != 0:
+        content_sizes = [zstd_frame_content_size(b) for b in bodies]
+        if options.integer_size == 0:
+            for content_size, dst in zip(content_sizes, sizes):
+                if content_size > dst:
+                    raise VbzError(VBZ_DESTINATION_SIZE_ERROR)
+        contents = _map_zstd(
+            lambda bc: zstd_decompress(bc[0], bc[1]),
+            list(zip(bodies, content_sizes)))
+    else:
+        contents = bodies
+    if options.integer_size == 0:
+        for content, dst in zip(contents, sizes):
+            if len(content) > dst:
+                raise VbzError(VBZ_DESTINATION_SIZE_ERROR)
+        return contents
+    options.validate_version()
+    counts = [_check_destination(dst, options) for dst in sizes]
+    args = (options.integer_size, options.perform_delta_zig_zag,
+            options.vbz_version)
+    batch_fn = getattr(backend, "svb_decompress_batch", None)
+    if batch_fn is not None:
+        outs = batch_fn(contents, counts, *args)
+    else:
+        outs = [backend.svb_decompress(content, count, *args)
+                for content, count in zip(contents, counts)]
+    return [np.ascontiguousarray(o).tobytes() for o in outs]
+
+
+# ---------------------------------------------------------------------------
+# pyvbz-compatible numpy API (reference: python/pyvbz/vbz/__init__.py:21-76)
+# ---------------------------------------------------------------------------
+
+
+def compress(data: np.ndarray, options: CompressionOptions | None = None,
+             backend=None) -> np.ndarray:
+    """Compress a numpy array to a sized stream; options inferred from dtype
+    when omitted (signed → zig-zag, itemsize → integer width)."""
+    if options is None:
+        options = CompressionOptions.for_dtype(data.dtype,
+                                               zstd_compression_level=1)
+    out = vbz_compress_sized(data, options, backend=backend)
+    return np.frombuffer(out, dtype=np.uint8)
+
+
+def decompress(data, dtype, options: CompressionOptions | None = None,
+               backend=None) -> np.ndarray:
+    """Decompress a sized stream back to a numpy array of ``dtype``."""
+    dt = np.dtype(dtype)
+    if options is None:
+        options = CompressionOptions.for_dtype(dt, zstd_compression_level=1)
+    out = vbz_decompress_sized(data, options, backend=backend)
+    return np.frombuffer(out, dtype=dt)

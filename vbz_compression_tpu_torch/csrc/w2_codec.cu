@@ -28,50 +28,11 @@
 
 #include <cuda_runtime.h>
 
+#include "row_scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = kThreads * 4;
-constexpr int kScanThreads = 1024;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// Exclusive scan (mod 2^32) of one value per thread over a block of NT
-// threads; *total receives the block's sum. smem holds NT/32 words.
-template <int NT>
-__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
-                                                         uint32_t* total,
-                                                         uint32_t* smem) {
-  static_assert(NT % 32 == 0 && NT <= 1024, "one warp scans the warp sums");
-  constexpr int kWarps = NT / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  uint32_t x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(kFullMask, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) smem[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < kWarps ? smem[lane] : 0u;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(kFullMask, w, d);
-      if (lane >= d) w += y;
-    }
-    if (lane < kWarps) smem[lane] = w;
-  }
-  __syncthreads();
-  const uint32_t before = warp > 0 ? smem[warp - 1] : 0u;
-  *total = smem[kWarps - 1];
-  __syncthreads();  // smem may be reused by the caller's next scan
-  return before + x - v;
-}
-
-__device__ __forceinline__ int clamp_len(int n, int N) {
-  return n < 0 ? 0 : (n > N ? N : n);
-}
+using namespace vbz;
 
 // Zig-zag delta of value i of a row (x[-1] = 0).
 template <typename X>
@@ -103,24 +64,6 @@ __device__ __forceinline__ uint32_t encode_quad(const X* row, int i0, int len,
     }
   }
   return bytes;
-}
-
-// Exclusive scan of in[b, 0:T] into out[b, 0:T], one block per row; the
-// row's sum goes to totals[b] when totals is not null.
-__global__ void row_exclusive_scan(const uint32_t* in, uint32_t* out,
-                                   uint32_t* totals, int T) {
-  __shared__ uint32_t smem[kScanThreads / 32];
-  const size_t row = static_cast<size_t>(blockIdx.x) * T;
-  uint32_t carry = 0;
-  for (int base = 0; base < T; base += kScanThreads) {
-    const int t = base + threadIdx.x;
-    const uint32_t v = t < T ? in[row + t] : 0u;
-    uint32_t sum;
-    const uint32_t e = block_exclusive_scan<kScanThreads>(v, &sum, smem);
-    if (t < T) out[row + t] = carry + e;
-    carry += sum;
-  }
-  if (totals != nullptr && threadIdx.x == 0) totals[blockIdx.x] = carry;
 }
 
 template <typename X>
@@ -212,7 +155,7 @@ __global__ void decode_sizes(const uint8_t* keys, const int* counts,
 
 // Decodes one tile: each value's bytes at the scanned offsets, un-zig-zag,
 // then the inclusive delta sum inside the tile. Writes that partial sum to
-// out and the tile's delta total to tile_sum; decode_add_carry adds the sum
+// out and the tile's delta total to tile_sum; finish_undelta adds the sum
 // of the row's earlier tiles.
 template <typename X>
 __global__ void decode_tiles(const uint8_t* keys, const uint8_t* data,
@@ -268,27 +211,6 @@ __global__ void decode_tiles(const uint8_t* keys, const uint8_t* data,
 }
 
 template <typename X>
-__global__ void decode_add_carry(X* out, const int* counts,
-                                 const uint32_t* carry, int N, int T) {
-  using U = std::make_unsigned_t<X>;
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int count = clamp_len(counts[b], N);
-  if (base >= count) return;
-  const uint32_t c = carry[static_cast<size_t>(b) * T + blockIdx.x];
-  if (c == 0) return;
-  X* orow = out + static_cast<size_t>(b) * N;
-  const int i0 = base + 4 * threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int i = i0 + k;
-    if (i < count) {
-      orow[i] = static_cast<X>(static_cast<U>(static_cast<U>(orow[i]) + c));
-    }
-  }
-}
-
-template <typename X>
 int encode_launch(const void* x, const int* lens, uint8_t* keys,
                   uint8_t* data, int* data_len, uint32_t* tile_bytes,
                   uint32_t* tile_off, int B, int N, cudaStream_t s) {
@@ -328,11 +250,7 @@ int decode_launch(const uint8_t* keys, const uint8_t* data, const int* counts,
                                             tile_sum, N, T, D);
   err = cudaGetLastError();
   if (err != 0) return err;
-  row_exclusive_scan<<<B, kScanThreads, 0, s>>>(tile_sum, tile_carry, nullptr, T);
-  err = cudaGetLastError();
-  if (err != 0) return err;
-  decode_add_carry<X><<<grid, kThreads, 0, s>>>(o, counts, tile_carry, N, T);
-  return cudaGetLastError();
+  return finish_undelta<X>(o, counts, tile_sum, tile_carry, B, N, T, s);
 }
 
 }  // namespace

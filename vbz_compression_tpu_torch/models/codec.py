@@ -1,18 +1,21 @@
-"""PyTorch codec backend: the StreamVByte stage on the W2 kernels.
+"""PyTorch codec backend: the StreamVByte stage on the port's kernels.
 
 The counterpart of ``vbz_compression_tpu.models.codec.PallasSvbBackend``,
-with the same four methods, so the JAX package's pipeline functions
-(``vbz_compression_tpu.api``) run the port when handed a
-:class:`TorchSvbBackend` as ``backend=``. The host keeps what the JAX
-backend keeps: input typing, stream validation with the same ``VbzError``
-codes, and the trim of each row's output to the exact wire length.
+with the same four methods, so the port's pipeline (:mod:`..api`) runs it
+when handed a :class:`TorchSvbBackend` as ``backend=``. The host keeps what
+the JAX backend keeps: input typing, stream validation with the same
+``VbzError`` codes, and the trim of each row's output to the exact wire
+length.
 
 A batch call puts all of its chunks into one padded ``[B, Nmax]`` tensor with
 per-row lengths, so one launch sequence per direction serves the whole call.
 
-Flavors: zz16 (int16, zig-zag; v1 at width 2 is v0) and zz8 (v0 int8,
-zig-zag). The W4 flavors and v1 int8 are not ported yet and raise
-``NotImplementedError``; there is no fallback to another backend.
+Every flavor of the v0/v1 option lattice has a kernel pair:
+    W2 (``ops.svb_w2``, kernels E/D): zz16, and v0 zz8;
+    W4 (``ops.svb_w4``, kernels E4/D4): zz32, none32, none16, v0 none8;
+    v1 (``ops.svb_v1``, kernels V1E/V1D): v1 int8, zz8 and none8.
+v1 at integer_size 2 or 4 is v0, as in the reference. There is no fallback
+to another backend.
 """
 
 from __future__ import annotations
@@ -20,35 +23,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vbz_compression_tpu.errors import (
+from ..errors import (
     VBZ_INPUT_SIZE_ERROR,
     VBZ_INTEGER_SIZE_ERROR,
     VBZ_STREAMVBYTE_STREAM_ERROR,
     VbzError,
 )
-from vbz_compression_tpu.ops import scalar
+from ..ops import scalar, svb_v1, svb_w2, svb_w4
 
-from ..ops import svb_w2
-
-_NUMPY_DTYPES = {"zz16": np.int16, "zz8": np.int8}
 _SIGNED_FOR_SIZE = {1: np.int8, 2: np.int16, 4: np.int32}
 
+# (integer_size, zigzag) -> flavor, as in the JAX backend's _PALLAS_FLAVOR.
+_FLAVOR = {(2, True): "zz16", (2, False): "none16",
+           (1, True): "zz8", (1, False): "none8",
+           (4, True): "zz32", (4, False): "none32"}
+# kind -> (encode rows, decode rows, data bytes per value at most)
+_KINDS = {
+    "w2": (svb_w2.encode_w2_rows, svb_w2.decode_w2_rows, 2),
+    "w4": (svb_w4.encode_w4_rows, svb_w4.decode_w4_rows, 4),
+    "v1": (svb_v1.encode_v1_rows, svb_v1.decode_v1_rows, 2),
+}
 
-def _w2_flavor(integer_size: int, use_zigzag: bool, version: int) -> str:
-    """The W2 flavor of an option set, or raise for what is not ported."""
+
+def _route(integer_size: int, use_zigzag: bool,
+           version: int) -> tuple[str, str]:
+    """(kind, flavor) of an option set: "v1" for v1 int8, "w2" for the
+    zig-zag widths 2 and 1, "w4" for the rest."""
     if integer_size not in _SIGNED_FOR_SIZE:
         raise VbzError(VBZ_INTEGER_SIZE_ERROR, f"integer_size={integer_size}")
-    if use_zigzag and integer_size == 2:
-        return "zz16"
+    flavor = _FLAVOR[(integer_size, bool(use_zigzag))]
     if integer_size == 1 and version == 1:
-        raise NotImplementedError(
-            "v1 int8 half-byte streams are not ported yet "
-            "(ROADMAP Queue 2, pallas_v1 encode_v1/decode_v1)")
-    if use_zigzag and integer_size == 1:
-        return "zz8"
-    raise NotImplementedError(
-        f"W4 flavor (integer_size={integer_size}, zigzag={use_zigzag}) is not "
-        "ported yet (ROADMAP Queue 2, pallas_w4 encode_w4_dense/decode_w4_dense)")
+        return "v1", flavor
+    return ("w2" if flavor in svb_w2.FLAVOR_DTYPES else "w4"), flavor
 
 
 def _typed_input(data, integer_size: int) -> np.ndarray:
@@ -74,19 +80,29 @@ def _is_empty(buf: np.ndarray, count: int) -> bool:
     return False
 
 
-def _check_w2_stream(buf: np.ndarray, count: int) -> int:
-    """Validate a non-empty W2 stream the way the reference decoder does
-    (``streamvbyte_validate_stream``); returns its key length."""
+_V1_NIBBLES = np.array([0, 1, 2, 4], np.int64)      # v1 nibbles per code
+_W4_EXTRA_BYTES = np.array([0, 1, 2, 3], np.int64)  # v0 bytes per code - 1
+
+
+def _check_stream(buf: np.ndarray, count: int, kind: str) -> int:
+    """Validate a non-empty stream the way the reference decoder does
+    (``streamvbyte_validate_stream`` and, for v1,
+    ``streamvbyte_validate_stream_half``); returns its key length."""
     key_len = (count + 3) // 4
     if buf.size < key_len:
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR, "stream too short")
     codes = scalar.unpack_keys(buf[:key_len], 4 * key_len)
-    if (codes[:count] > 1).any():
+    per_code = np.bincount(codes[:count], minlength=4)  # values per code
+    if kind == "w2" and per_code[2:].any():
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR, "invalid code for width")
     if (codes[count:] != 0).any():
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR,
                        "nonzero trailing key bits")
-    if key_len + count + int(codes[:count].sum()) != buf.size:
+    if kind == "v1":
+        data_len = (int(per_code @ _V1_NIBBLES) + 1) // 2
+    else:
+        data_len = count + int(per_code @ _W4_EXTRA_BYTES)
+    if key_len + data_len != buf.size:
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR, "stream length mismatch")
     return key_len
 
@@ -96,8 +112,8 @@ def _split(flat: np.ndarray, sizes: list[int]) -> list[np.ndarray]:
 
 
 class TorchSvbBackend:
-    """StreamVByte stage on ``device``: the W2 kernels on a CUDA device, their
-    plain PyTorch versions on the CPU."""
+    """StreamVByte stage on ``device``: the port's kernels on a CUDA device,
+    their plain PyTorch versions on the CPU."""
 
     def __init__(self, device="cuda"):
         self.device = torch.device(device)
@@ -111,7 +127,7 @@ class TorchSvbBackend:
 
     def svb_compress_batch(self, arrays, integer_size: int, use_zigzag: bool,
                            version: int) -> list:
-        flavor = _w2_flavor(integer_size, use_zigzag, version)
+        kind, flavor = _route(integer_size, use_zigzag, version)
         typed = [_typed_input(a, integer_size) for a in arrays]
         live = [i for i, t in enumerate(typed) if t.size]
         out = [b""] * len(typed)
@@ -119,7 +135,7 @@ class TorchSvbBackend:
             return out
         rows = [typed[i] for i in live]
         x, lens = self._padded_rows(rows)
-        keys, data, data_len = svb_w2.encode_w2_rows(x, lens, flavor)
+        keys, data, data_len = _KINDS[kind][0](x, lens, flavor)
         key_lens = [(r.size + 3) // 4 for r in rows]
         data_lens = data_len.tolist()
         flat = torch.cat([keys[j, :k] for j, k in enumerate(key_lens)]
@@ -155,15 +171,16 @@ class TorchSvbBackend:
 
     def svb_decompress_batch(self, streams, counts, integer_size: int,
                              use_zigzag: bool, version: int) -> list:
-        flavor = _w2_flavor(integer_size, use_zigzag, version)
-        dtype = _NUMPY_DTYPES[flavor]
+        kind, flavor = _route(integer_size, use_zigzag, version)
+        _, decode, per_value = _KINDS[kind]
+        dtype = _SIGNED_FOR_SIZE[integer_size]
         bufs = [_as_u8(s) for s in streams]
         counts = [int(c) for c in counts]
         out = [np.zeros(0, dtype)] * len(bufs)
         live, key_lens = [], []
         for i, (buf, count) in enumerate(zip(bufs, counts)):
             if not _is_empty(buf, count):
-                key_lens.append(_check_w2_stream(buf, count))
+                key_lens.append(_check_stream(buf, count, kind))
                 live.append(i)
         if not live:
             return out
@@ -172,7 +189,8 @@ class TorchSvbBackend:
         flat = torch.from_numpy(np.concatenate([bufs[i] for i in live])).to(
             self.device)
         keys = torch.zeros(B, width // 4, dtype=torch.uint8, device=self.device)
-        data = torch.empty(B, 2 * width, dtype=torch.uint8, device=self.device)
+        data = torch.empty(B, per_value * width, dtype=torch.uint8,
+                           device=self.device)
         start = 0
         for b, (i, k) in enumerate(zip(live, key_lens)):
             n = bufs[i].size
@@ -181,7 +199,7 @@ class TorchSvbBackend:
             start += n
         cnt = torch.tensor([counts[i] for i in live], dtype=torch.int32,
                            device=self.device)
-        rows = svb_w2.decode_w2_rows(keys, data, cnt, flavor)
+        rows = decode(keys, data, cnt, flavor)
         sizes = [counts[i] for i in live]
         flat_out = torch.cat([rows[b, :n] for b, n in enumerate(sizes)])
         for i, part in zip(live, _split(flat_out.cpu().numpy(), sizes)):

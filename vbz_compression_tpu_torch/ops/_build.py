@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a plain C
-interface and loaded with :mod:`ctypes`, so no PyTorch headers are compiled.
-The library lands in ``build/torch_kernels/<hash>/libvbz_w2.so`` at
-the root of the checkout, keyed by the sources and flags, and is built at the
-first call that needs it (never at import: machines without ``nvcc`` import
-this module too).
+Each ``csrc/<name>_codec.cu`` is compiled by ``nvcc`` into a shared library
+of its own with a plain C interface, ``libvbz_<name>.so``, and loaded with
+:mod:`ctypes`, so no PyTorch headers are compiled. The headers
+(``csrc/*.cuh``) are part of every library's content hash, so editing one
+rebuilds all of them. Libraries land in
+``build/torch_kernels/<hash>/libvbz_<name>.so`` at the root of the checkout,
+keyed by the source, the headers and the flags, and are built at the first
+call that needs them (never at import: machines without ``nvcc`` import this
+module too). :func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -24,22 +27,45 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-LIB_NAME = "libvbz_w2.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes; every entry point returns a cudaError_t as int.
+# library -> entry point -> argtypes; every entry point returns a
+# cudaError_t as int.
 _SIGNATURES = {
-    "vbz_w2_tile": [],
-    # x, lens, keys, data, data_len, scratch, B, N, elem_bytes, stream
-    "vbz_w2_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # keys, data, counts, out, scratch, B, N, D, elem_bytes, stream
-    "vbz_w2_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "w2": {
+        "vbz_w2_tile": [],
+        # x, lens, keys, data, data_len, scratch, B, N, elem_bytes, stream
+        "vbz_w2_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # keys, data, counts, out, scratch, B, N, D, elem_bytes, stream
+        "vbz_w2_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "w4": {
+        "vbz_w4_tile": [],
+        # x, lens, keys, data, data_len, scratch, B, N, elem_bytes, zigzag,
+        # stream
+        "vbz_w4_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # keys, data, counts, out, scratch, B, N, D, elem_bytes, zigzag,
+        # stream
+        "vbz_w4_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "v1": {
+        "vbz_v1_tile": [],
+        # x, lens, keys, data, data_len, scratch, B, N, zigzag, stream
+        "vbz_v1_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # keys, data, counts, out, scratch, B, N, D, zigzag, stream
+        "vbz_v1_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
+NAMES = tuple(_SIGNATURES)
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _source(name: str) -> Path:
+    return CSRC / f"{name}_codec.cu"
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -50,42 +76,58 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [_source(name), *_headers()]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+    return BUILD_ROOT / h.hexdigest()[:16] / f"libvbz_{name}.so"
 
 
-def build() -> tuple[Path, float]:
-    """Compile the library unless this content hash is built already.
-    Returns its path and the seconds the compile took (0 when cached)."""
-    path = library_path()
-    if path.exists():
-        return path, 0.0
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, path)  # atomic: concurrent builders never see a partial file
-    return path, seconds
+def build_all(names=NAMES) -> dict:
+    """Compile each named library unless its content hash is built already,
+    one ``nvcc`` per source, all started together. Returns
+    {name: (path, seconds the compile took, 0 when cached)}."""
+    jobs, out = {}, {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = (path, 0.0)
+            continue
+        path.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+               str(_source(name))]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs[name] = (path, tmp, cmd, proc, time.perf_counter())
+    failed = []
+    for name, (path, tmp, cmd, proc, t0) in jobs.items():
+        _, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{stderr}")
+            continue
+        os.replace(tmp, path)  # atomic: no other process sees a partial file
+        out[name] = (path, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.cache
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    path, _ = build()
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (w2, w4 or v1), built on first
+    use."""
+    if name not in _SIGNATURES:
+        raise ValueError(f"no kernel library {name!r} (want one of {NAMES})")
+    path, _ = build_all([name])[name]
     so = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(so, name)
+    for entry, argtypes in _SIGNATURES[name].items():
+        fn = getattr(so, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return so

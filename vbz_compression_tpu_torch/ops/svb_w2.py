@@ -36,15 +36,15 @@ from __future__ import annotations
 
 import torch
 
+from . import _rows
+
 FLAVOR_DTYPES = {"zz16": torch.int16, "zz8": torch.int8}
 
 # Kernel-sequence launches, one per wrapper call that reached the card.
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 
-_KEY_SHIFTS = (0, 2, 4, 6)
 _MAX_N = 1 << 29   # keeps every in-row byte offset (< 2N) in an int32
-_MAX_B = 65535     # the kernels' grid y dimension
 
 
 def _dtype(flavor: str) -> torch.dtype:
@@ -52,44 +52,6 @@ def _dtype(flavor: str) -> torch.dtype:
         raise ValueError(f"flavor {flavor!r} is not a W2 flavor "
                          f"{tuple(FLAVOR_DTYPES)}")
     return FLAVOR_DTYPES[flavor]
-
-
-def _check(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
-    if t.dtype != dtype or t.dim() != 2:
-        raise ValueError(f"{name}: want 2-D {dtype}, got "
-                         f"{t.dim()}-D {t.dtype}")
-
-
-def _check_lens(lens: torch.Tensor, B: int, ref: torch.Tensor,
-                name: str) -> None:
-    if lens.dtype != torch.int32 or tuple(lens.shape) != (B,):
-        raise ValueError(f"{name}: want int32 [{B}], got {lens.dtype} "
-                         f"{tuple(lens.shape)}")
-    if lens.device != ref.device:
-        raise ValueError(f"{name} is on {lens.device}, data on {ref.device}")
-
-
-def _check_kernel_args(B: int, N: int, *tensors: torch.Tensor) -> None:
-    if N > _MAX_N or B > _MAX_B:
-        raise ValueError(f"batch [{B}, {N}] exceeds the kernel's "
-                         f"[{_MAX_B}, {_MAX_N}]")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("kernel arguments must be contiguous")
-
-
-def _valid(lens: torch.Tensor, N: int) -> torch.Tensor:
-    """[B, N] mask of the values before each row's (clamped) length."""
-    n = lens.to(torch.int64).clamp(0, N)
-    return torch.arange(N, device=lens.device)[None, :] < n[:, None]
-
-
-def _shifts(device) -> torch.Tensor:
-    return torch.tensor(_KEY_SHIFTS, dtype=torch.int32, device=device)
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -107,37 +69,26 @@ def encode_w2_rows_plain(x: torch.Tensor, lens: torch.Tensor, flavor: str):
         v = ((d << 1) & 0xFFFF) ^ ((d >> 15) * 0xFFFF)
     else:
         v = (d << 1) ^ (d >> 31)             # 32-bit delta: v <= 510
-    valid = _valid(lens, N)
+    valid = _rows.valid_mask(lens, N)
     code = ((v > 0xFF) & valid).to(torch.int32)
-    keys = (code.view(B, N // 4, 4) << _shifts(x.device)).sum(
-        dim=2).to(torch.uint8)
-    nbytes = (1 + code) * valid
-    ends = torch.cumsum(nbytes, dim=1)
-    off = ends - nbytes
+    off, data_len = _rows.row_ends((1 + code) * valid)
     spill = 2 * N  # scatter target of masked-out bytes, dropped below
     data = torch.zeros(B, 2 * N + 1, dtype=torch.uint8, device=x.device)
     data.scatter_(1, torch.where(valid, off, spill),
                   (v & 0xFF).to(torch.uint8))
     data.scatter_(1, torch.where(code.bool(), off + 1, spill),
                   (v >> 8).to(torch.uint8))
-    data_len = ends[:, -1] if N else torch.zeros(B, dtype=torch.int64,
-                                                 device=x.device)
-    return keys, data[:, :spill].contiguous(), data_len.to(torch.int32)
+    return (_rows.pack_keys(code), data[:, :spill].contiguous(),
+            data_len.to(torch.int32))
 
 
 def encode_w2_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
     """W2 encode of each row's first ``lens[b]`` values; see the module
     docstring for the layouts. Kernel E on CUDA, the plain version on CPU."""
-    _check(x, _dtype(flavor), "x")
-    B, N = x.shape
-    if N % 4:
-        raise ValueError(f"row width {N} is not a multiple of 4")
-    _check_lens(lens, B, x, "lens")
-    if x.device.type == "cpu":
+    B, N = _rows.check_encode_args(x, _dtype(flavor), lens)
+    if _rows.on_cpu(x, "W2 encode"):
         return encode_w2_rows_plain(x, lens, flavor)
-    if x.device.type != "cuda":
-        raise ValueError(f"no W2 encode for device {x.device}")
-    _check_kernel_args(B, N, x, lens)
+    _rows.check_kernel_args(B, N, _MAX_N, x, lens)
     keys = torch.empty(B, N // 4, dtype=torch.uint8, device=x.device)
     data = torch.empty(B, 2 * N, dtype=torch.uint8, device=x.device)
     data_len = torch.zeros(B, dtype=torch.int32, device=x.device)
@@ -145,16 +96,11 @@ def encode_w2_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
         return keys, data, data_len
     from . import _build
 
-    lib = _build.lib()
+    lib = _build.lib("w2")
     tiles = -(-N // lib.vbz_w2_tile())
     scratch = torch.empty(2, B, tiles, dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.vbz_w2_encode(
-            x.data_ptr(), lens.data_ptr(), keys.data_ptr(), data.data_ptr(),
-            data_len.data_ptr(), scratch.data_ptr(), B, N, x.element_size(),
-            _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"W2 encode kernel launch failed: CUDA error {rc}")
+    _rows.launch(lib.vbz_w2_encode, "W2 encode", x, lens, keys, data,
+                 data_len, scratch, B, N, x.element_size())
     global ENCODE_LAUNCHES
     ENCODE_LAUNCHES += 1
     return keys, data, data_len
@@ -168,15 +114,12 @@ def encode_w2_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
 def decode_w2_rows_plain(keys: torch.Tensor, data: torch.Tensor,
                          counts: torch.Tensor, flavor: str) -> torch.Tensor:
     """Plain PyTorch decode (any device); same contract as the kernel."""
-    B, NK = keys.shape
-    N = 4 * NK
+    code = _rows.unpack_keys(keys)
+    N = code.shape[1]
     D = data.shape[1]
-    code = ((keys.to(torch.int32)[:, :, None] >> _shifts(keys.device))
-            & 3).view(B, N)
-    valid = _valid(counts, N)
+    valid = _rows.valid_mask(counts, N)
     two = (code != 0) & valid
-    nbytes = valid.to(torch.int32) + two
-    off = torch.cumsum(nbytes, dim=1) - nbytes
+    off, _ = _rows.row_ends(valid.to(torch.int32) + two)
     padded = torch.nn.functional.pad(data, (0, 1))  # column D reads as 0
 
     def byte_at(pos, want):
@@ -196,20 +139,11 @@ def decode_w2_rows(keys: torch.Tensor, data: torch.Tensor,
     """W2 decode of each row's first ``counts[b]`` values; see the module
     docstring for the layouts. Kernel D on CUDA, the plain version on CPU."""
     dtype = _dtype(flavor)
-    _check(keys, torch.uint8, "keys")
-    _check(data, torch.uint8, "data")
-    B, NK = keys.shape
-    if data.shape[0] != B or data.device != keys.device:
-        raise ValueError(f"data {tuple(data.shape)} on {data.device} does "
-                         f"not match keys {tuple(keys.shape)} on "
-                         f"{keys.device}")
-    _check_lens(counts, B, keys, "counts")
-    if keys.device.type == "cpu":
+    B = _rows.check_decode_args(keys, data, counts)
+    if _rows.on_cpu(keys, "W2 decode"):
         return decode_w2_rows_plain(keys, data, counts, flavor)
-    if keys.device.type != "cuda":
-        raise ValueError(f"no W2 decode for device {keys.device}")
-    N, D = 4 * NK, data.shape[1]
-    _check_kernel_args(B, N, keys, data, counts)
+    N, D = 4 * keys.shape[1], data.shape[1]
+    _rows.check_kernel_args(B, N, _MAX_N, keys, data, counts)
     if D >= 1 << 31:
         raise ValueError(f"data row of {D} bytes exceeds the kernel's int32")
     out = torch.empty(B, N, dtype=dtype, device=keys.device)
@@ -217,16 +151,11 @@ def decode_w2_rows(keys: torch.Tensor, data: torch.Tensor,
         return out
     from . import _build
 
-    lib = _build.lib()
+    lib = _build.lib("w2")
     tiles = -(-N // lib.vbz_w2_tile())
     scratch = torch.empty(4, B, tiles, dtype=torch.int32, device=keys.device)
-    with torch.cuda.device(keys.device):
-        rc = lib.vbz_w2_decode(
-            keys.data_ptr(), data.data_ptr(), counts.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), B, N, D, out.element_size(),
-            _stream(keys.device))
-    if rc != 0:
-        raise RuntimeError(f"W2 decode kernel launch failed: CUDA error {rc}")
+    _rows.launch(lib.vbz_w2_decode, "W2 decode", keys, data, counts, out,
+                 scratch, B, N, D, out.element_size())
     global DECODE_LAUNCHES
     DECODE_LAUNCHES += 1
     return out

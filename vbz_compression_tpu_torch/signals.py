@@ -1,6 +1,7 @@
 """Test signals for the port's smoke run and profiles, made with numpy from
-a seed: the four ``bench.py`` tiers as B rows of N int16, and a corpus of
-reads of log-uniform length."""
+a seed: the four ``bench.py`` tiers as B rows of N int16, a corpus of reads
+of log-uniform length, and content for the other flavors (int32, int8 and
+unsigned signals, uniform noise, the v1 odd-nibble pattern)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,56 @@ def corpus(reads: int = 64, shortest: int = 2_000, longest: int = 4_000_000,
     lengths = np.exp(rng.uniform(np.log(shortest), np.log(longest),
                                  reads)).astype(np.int64)
     return [walk_with_reads(rng, int(n)) for n in lengths]
+
+
+def int32_walk(rng, n: int) -> np.ndarray:
+    """int32 walk 5e4 + cumsum(normal(0, 3e3)), as in the zz32 tests."""
+    return (5e4 + np.cumsum(rng.normal(0, 3e3, n))).astype(np.int32)
+
+
+def int8_walk(rng, n: int) -> np.ndarray:
+    """sigma=3 int8 walk clipped to +-100."""
+    return np.clip(np.cumsum(rng.normal(0, 3, n)), -100, 100).astype(np.int8)
+
+
+def uniform(rng, n: int, dtype) -> np.ndarray:
+    """Uniform noise over the whole range of a signed integer dtype."""
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, n, dtype=np.int64,
+                        endpoint=True).astype(dtype)
+
+
+def adc_counts(rng, n: int) -> np.ndarray:
+    """uint16 counts of a 12-bit ADC: a sigma=12 walk around 500 clipped to
+    [0, 4095]."""
+    return np.clip(500 + np.cumsum(rng.normal(0, 12, n)), 0,
+                   4095).astype(np.uint16)
+
+
+def v1_odd_nibbles(n: int = 2048, seed: int = 3) -> np.ndarray:
+    """int8 values that take every v1 code (0, 1, 2, 4 nibbles) and put
+    values on odd nibble offsets across 4-value and 1024-value boundaries;
+    at n=2048 it is ``test_v1_all_codes_and_odd_nibbles``'s input."""
+    rng = np.random.default_rng(seed)
+    sig = np.zeros(n, np.int8)
+    sig[1::4] = 1
+    sig[2::4] = rng.integers(-128, 128, n // 4)
+    sig[3::4] = rng.integers(-8, 8, n // 4)
+    return sig
+
+
+# Content of each corpus kind: (generator of n values from rng, dtype).
+CORPUS_KINDS = {
+    "int32_walk": int32_walk,
+    "int8_walk": int8_walk,
+    "adc_u16": adc_counts,
+    "u8": lambda rng, n: (int8_walk(rng, n).astype(np.int16)
+                          + 128).astype(np.uint8),
+    "u32": lambda rng, n: adc_counts(rng, n).astype(np.uint32) * 4099,
+}
+
+
+def corpus_of(kind: str, lengths, seed: int = 2025) -> list:
+    """One read of ``kind`` content (``CORPUS_KINDS``) per length."""
+    rng = np.random.default_rng(seed)
+    return [CORPUS_KINDS[kind](rng, int(n)) for n in lengths]

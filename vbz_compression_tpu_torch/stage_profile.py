@@ -38,9 +38,8 @@ import time
 import numpy as np
 import torch
 
-from vbz_compression_tpu import api as _pipeline
-
 from . import CompressionOptions, signals
+from . import api as _pipeline
 from .models import codec
 from .ops import svb_w2
 
@@ -75,9 +74,10 @@ def replay_encode(backend: codec.TorchSvbBackend, chunks,
     raws = [_pipeline._as_bytes(c) for c in chunks]
     headers = [struct.pack("<I", len(r)) for r in raws]
     clock.lap("api _as_bytes")
-    flavor = codec._w2_flavor(options.integer_size,
-                              options.perform_delta_zig_zag,
-                              options.vbz_version)
+    kind, flavor = codec._route(options.integer_size,
+                                options.perform_delta_zig_zag,
+                                options.vbz_version)
+    assert kind == "w2"
     typed = [codec._typed_input(r, options.integer_size) for r in raws]
     live = [i for i, t in enumerate(typed) if t.size]
     rows = [typed[i] for i in live]
@@ -126,16 +126,17 @@ def replay_decode(backend: codec.TorchSvbBackend, frames,
     bodies = [r[_pipeline.SIZED_HEADER_BYTES:] for r in raws]
     counts = [s // options.integer_size for s in sizes]
     clock.lap("api unframe")
-    flavor = codec._w2_flavor(options.integer_size,
-                              options.perform_delta_zig_zag,
-                              options.vbz_version)
-    dtype = codec._NUMPY_DTYPES[flavor]
+    kind, flavor = codec._route(options.integer_size,
+                                options.perform_delta_zig_zag,
+                                options.vbz_version)
+    assert kind == "w2"
+    dtype = codec._SIGNED_FOR_SIZE[options.integer_size]
     bufs = [codec._as_u8(s) for s in bodies]
     clock.lap("as u8")
     live, key_lens = [], []
     for i, (buf, count) in enumerate(zip(bufs, counts)):
         if not codec._is_empty(buf, count):
-            key_lens.append(codec._check_w2_stream(buf, count))
+            key_lens.append(codec._check_stream(buf, count, kind))
             live.append(i)
     clock.lap("host validation")
     flat = torch.from_numpy(np.concatenate([bufs[i] for i in live])).to(
