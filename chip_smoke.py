@@ -8,8 +8,9 @@ Run from the root of a checkout, with one CUDA card visible:
 Phases, each of which exits nonzero on failure (each prints its seconds):
   1. device: a CUDA card must be visible; prints nvidia-smi's name and
      power limit;
-  2. build: compiles the three kernel libraries from
-     vbz_compression_tpu_torch/csrc, one nvcc per source, all at once;
+  2. build: compiles the five kernel libraries from
+     vbz_compression_tpu_torch/csrc (the three codecs, the copy, the
+     probe), one nvcc per source, all at once;
   3. kernels against their plain PyTorch versions on the card, bit for bit,
      one row of each case also against the port's NumPy oracle:
      E/D (W2) on the four int16 tiers (B=4 rows of 4M), the int16 wrap
@@ -26,7 +27,18 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
   5. times: kernel (L2 flushed before each call, and back to back) and plain
      version per tier, flavor and direction, with each kernel's bound (the
      bytes it must move at the card's 3.35 TB/s), and the batch API host to
-     host per main path.
+     host per main path; also E/D on a [64, 8192] batch and E4 none32 / D
+     on codec2's [1, 4096] input;
+  6. copy and probe kernels against their plain versions on the card, bit
+     for bit: CP at 256 MiB and on row counts that are not powers of two,
+     every case of the capability probe; each timed (L2 flushed, and back
+     to back) beside its plain version, its one-call PyTorch equivalent
+     where there is one, and its bound;
+  7. the bench path: vbz_compression_tpu_torch.bench on the four tiers (one
+     pass), the copy bandwidth and the pipeline line; E, D and CP must have
+     launched (counts set to 0 just before and read just after);
+  8. the probe path: vbz_compression_tpu_torch.tools.capability_probe, every
+     case OK; every probe kernel and CP must have launched.
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -35,7 +47,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -47,8 +58,11 @@ READ_MIN, READ_MAX = 2_000, 4_000_000
 REPEATS = 3
 CALLS = 10                 # launches per back-to-back timed run
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FLUSH_BYTES = 256 << 20    # zeroed before a cold call: over 5x the 50 MB L2
+# (R, rows) of the copy cases: 256 MiB in the bench's tiles, then row
+# counts that are not powers of two, a ragged last step inside the tile,
+# and single-row tiles.
+COPY_CASES = ((1 << 19, 8192), (3000, 600), (1000, 1))
 RAGGED = np.array([1, 3, 4, 5, 4095, 4097, 16383, 16385], np.int32)
 
 # (cd_values, corpus content, kernel pair) of each main path, in run order.
@@ -85,6 +99,24 @@ ORACLE_ARGS = {
 # The flavor each pair's headline time is taken on.
 HEADLINE = {"w2": ("zz16", "realistic"), "w4": ("zz32", "signal"),
             "v1": ("zz8", "signal")}
+# copy and probe kernels -> (source, replaced pallas_call site)
+_PROBE = "vbz_compression_tpu_torch/csrc/probe.cu"
+AUX = {
+    "copy": ("vbz_compression_tpu_torch/csrc/copy.cu",
+             "vbz_compression_tpu/utils/roofline.py:68"),
+    "roll_lanes": (_PROBE, "tools/probe_dynroll.py:79"),
+    "roll_rows": (_PROBE, "tools/probe_dynroll.py:79"),
+    "flat_shift_right": (_PROBE, "tools/probe_dynroll.py:79"),
+    "prefix_sum": (_PROBE, "tools/probe_dynroll.py:79"),
+    "store_bytes": (_PROBE, "tools/probe_i8dma.py:45"),
+    "load_bytes": (_PROBE, "tools/probe_i8dma.py:64"),
+    "pack_keys": (_PROBE, "tools/probe_keypack.py:50"),
+    "unpack_keys": (_PROBE, "tools/probe_keypack.py:64"),
+    "fetch_i32": (_PROBE, "tools/probe_widen.py:62"),
+    "fetch_i8_widen": (_PROBE, "tools/probe_widen.py:62"),
+    "butterfly_i16": (_PROBE, "tools/probe_i16roll.py:76"),
+    "butterfly_i32": (_PROBE, "tools/probe_i16roll.py:76"),
+}
 
 
 class Port:
@@ -94,11 +126,15 @@ class Port:
         import torch
 
         import vbz_compression_tpu_torch as pkg
-        from vbz_compression_tpu_torch import api, signals
-        from vbz_compression_tpu_torch.ops import _build, svb_v1, svb_w2, svb_w4
+        from vbz_compression_tpu_torch import api, bench, signals
+        from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1,
+                                                   svb_w2, svb_w4)
+        from vbz_compression_tpu_torch.tools import capability_probe
+        from vbz_compression_tpu_torch.utils import profiling, roofline
 
         self.torch, self.pkg, self.api, self.signals = torch, pkg, api, signals
-        self.build = _build
+        self.build, self.bench, self.probe = _build, bench, capability_probe
+        self.probes, self.profiling, self.roofline = probes, profiling, roofline
         self.mods = {"w2": svb_w2, "w4": svb_w4, "v1": svb_v1}
         self.fns = {
             "w2": (svb_w2.encode_w2_rows, svb_w2.encode_w2_rows_plain,
@@ -113,10 +149,24 @@ class Port:
         for m in self.mods.values():
             m.ENCODE_LAUNCHES = 0
             m.DECODE_LAUNCHES = 0
+        self.roofline.COPY_LAUNCHES = 0
+        for key in self.probes.LAUNCHES:
+            self.probes.LAUNCHES[key] = 0
 
     def counts(self) -> dict:
-        return {k: (m.ENCODE_LAUNCHES, m.DECODE_LAUNCHES)
-                for k, m in self.mods.items()}
+        """Launches per kernel name since the last zero_counts."""
+        out = {}
+        for pair, m in self.mods.items():
+            e_name, d_name = PAIRS[pair][0]
+            out[e_name], out[d_name] = m.ENCODE_LAUNCHES, m.DECODE_LAUNCHES
+        out["copy"] = self.roofline.COPY_LAUNCHES
+        out.update(self.probes.LAUNCHES)
+        return out
+
+    def require_launched(self, what: str, launches: dict, names) -> None:
+        idle = [n for n in names if launches[n] <= 0]
+        if idle:
+            raise SystemExit(f"{what} did not launch {idle}: {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -282,10 +332,7 @@ def main_path(port: Port, reads, cd_values, pair: str) -> dict:
     frames = api.vbz_compress_sized_batch(reads, opts)
     back = api.vbz_decompress_sized_batch(frames, opts)
     launches = port.counts()
-    enc_n, dec_n = launches[pair]
-    if not (enc_n > 0 and dec_n > 0):
-        raise SystemExit(f"main path {cd_values} did not launch both "
-                         f"{pair} kernels: {launches}")
+    port.require_launched(f"main path {cd_values}", launches, PAIRS[pair][0])
     for i, (r, f, b) in enumerate(zip(reads, frames, back)):
         if f != api.vbz_compress_sized(r, opts, backend=port.pkg.oracle):
             raise SystemExit(f"{cd_values} read {i}: frame differs from the "
@@ -304,7 +351,7 @@ def main_path(port: Port, reads, cd_values, pair: str) -> dict:
     out = {"options": list(cd_values), "content": str(reads[0].dtype),
            "pair": pair, "reads": len(reads), "bytes": raw,
            "frame_bytes": sum(len(f) for f in frames),
-           "launches": {k: list(v) for k, v in launches.items() if any(v)},
+           "launches": {k: v for k, v in launches.items() if v},
            "enc_s": enc_s, "dec_s": dec_s,
            "enc_gb_s": raw / enc_s / 1e9, "dec_gb_s": raw / dec_s / 1e9}
     print(f"  options {cd_values} ({out['content']}): {len(reads)} reads, "
@@ -320,78 +367,151 @@ def main_path(port: Port, reads, cd_values, pair: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def warm_ms(torch, fn) -> float:
-    """ms per call: CALLS calls back to back between two CUDA events, best
-    of REPEATS such runs, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(REPEATS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(CALLS):
-            fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / CALLS)
-    return best
-
-
-def cold_ms(torch, fn, flush) -> float:
-    """ms of one call with the L2 flushed just before it (a 256 MiB buffer
-    zeroed), the device kept busy while the host enqueues so that launch
-    gaps stay out; best of REPEATS."""
-    best = float("inf")
-    for _ in range(REPEATS):
-        torch.cuda._sleep(2_000_000)
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best
-
-
 def time_pair(port: Port, label: str, rows: np.ndarray, flush) -> dict:
     """Kernel (cold and warm) and plain times of one pair on [B, N] rows,
-    with the bound of each direction: bytes it must move (input read once,
-    output written once) over the card's memory rate."""
-    torch = port.torch
+    with the bound of each direction: bytes it must move
+    (``roofline.codec_bytes``) over the card's memory rate."""
+    torch, prof, roof = port.torch, port.profiling, port.roofline
     pair, flavor, _ = label.split()
     enc, enc_plain, dec, dec_plain = port.fns[pair]
     x = torch.from_numpy(rows).to(DEVICE)
     lens = torch.from_numpy(_full(rows)).to(DEVICE)
     keys, data, data_len = enc(x, lens, flavor)
     raw = rows.nbytes
-    stream = keys.numel() + int(data_len.sum())
-    enc_bytes = raw + lens.nbytes + stream + data_len.nbytes
-    dec_bytes = stream + lens.nbytes + raw
+    enc_bytes, dec_bytes = roof.codec_bytes(x, keys, data_len)
     t = {
-        "enc_ms": cold_ms(torch, lambda: enc(x, lens, flavor), flush),
-        "enc_warm_ms": warm_ms(torch, lambda: enc(x, lens, flavor)),
-        "enc_plain_ms": warm_ms(torch, lambda: enc_plain(x, lens, flavor)),
-        "dec_ms": cold_ms(torch, lambda: dec(keys, data, lens, flavor), flush),
-        "dec_warm_ms": warm_ms(torch, lambda: dec(keys, data, lens, flavor)),
-        "dec_plain_ms": warm_ms(torch, lambda: dec_plain(keys, data, lens,
-                                                         flavor)),
+        "enc_ms": prof.cold_ms(lambda: enc(x, lens, flavor), flush, REPEATS),
+        "enc_warm_ms": prof.warm_ms(lambda: enc(x, lens, flavor), CALLS,
+                                    REPEATS),
+        "enc_plain_ms": prof.warm_ms(lambda: enc_plain(x, lens, flavor),
+                                     CALLS, REPEATS),
+        "dec_ms": prof.cold_ms(lambda: dec(keys, data, lens, flavor), flush,
+                               REPEATS),
+        "dec_warm_ms": prof.warm_ms(lambda: dec(keys, data, lens, flavor),
+                                    CALLS, REPEATS),
+        "dec_plain_ms": prof.warm_ms(
+            lambda: dec_plain(keys, data, lens, flavor), CALLS, REPEATS),
         "enc_bytes": enc_bytes, "dec_bytes": dec_bytes,
-        "enc_bound_ms": enc_bytes / HBM_BYTES_PER_S * 1e3,
-        "dec_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
-        "input_bytes": raw, "stream_bytes": stream,
+        "enc_bound_ms": roof.bound_ms(enc_bytes),
+        "dec_bound_ms": roof.bound_ms(dec_bytes),
+        "input_bytes": raw, "stream_bytes": dec_bytes - 4 * len(rows) - raw,
     }
     for k in ("enc", "enc_warm", "enc_plain", "dec", "dec_warm",
               "dec_plain"):
         t[k + "_gb_s"] = raw / (t[k + "_ms"] / 1e3) / 1e9
-    print(f"  {label:18s} encode {t['enc_ms']:.4f} ms cold, "
+    print(f"  {label:22s} encode {t['enc_ms']:.4f} ms cold, "
           f"{t['enc_warm_ms']:.4f} warm, plain {t['enc_plain_ms']:.3f}, "
           f"bound {t['enc_bound_ms']:.4f}; decode {t['dec_ms']:.4f} cold, "
           f"{t['dec_warm_ms']:.4f} warm, plain {t['dec_plain_ms']:.3f}, "
-          f"bound {t['dec_bound_ms']:.4f} ({raw / 1e6:.1f} MB in)")
+          f"bound {t['dec_bound_ms']:.4f} ({raw / 1e6:.3f} MB in)")
     return t
+
+
+def codec2_rows(port: Port) -> tuple[np.ndarray, np.ndarray]:
+    """codec2's input (``test_codec2_pack_matches_e4_none32_and_d``): a
+    [1, 4096] int16 walk, and its zig-zag deltas as int32, which E4 none32
+    packs as codec2's encode did."""
+    rng = np.random.default_rng(0)
+    sig = np.clip(500 + np.cumsum(rng.normal(0, 12, 4096)), -2000,
+                  2000).astype(np.int16)
+    zz = port.pkg.oracle.zigzag_delta_encode(sig, 2).astype(np.int32)
+    return sig[None], zz[None]
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the copy and probe kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_aux(port: Port) -> dict:
+    """CP on COPY_CASES and every capability-probe case, kernel against
+    plain version on the card (must be equal); each kernel timed on its
+    first case, one call with the L2 flushed and back to back, beside its
+    plain version (back to back) and its one-call PyTorch equivalent (both
+    ways). Returns {kernel name: numbers}."""
+    torch, prof, roof = port.torch, port.profiling, port.roofline
+    probe = port.probe
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    cases = []
+    for R, rows in COPY_CASES:
+        gen = torch.Generator(device=DEVICE).manual_seed(R)
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (R, 128), dtype=torch.int32,
+                          device=DEVICE, generator=gen)
+        dst = torch.empty_like(x)
+        cases.append(probe.Case(
+            f"copy [{R}, 128] tiles of {rows}", "copy",
+            lambda x=x, rows=rows: roof.copy_blocked(x, rows),
+            lambda x=x: roof.copy_blocked_plain(x),
+            lambda x=x, dst=dst: dst.copy_(x), 2 * x.numel() * 4))
+    cases += probe.cases(DEVICE)
+    out = {}
+    for case in cases:
+        err = probe.max_abs_err(case.kernel(), case.plain())
+        torch.cuda.synchronize()
+        print(f"  {case.key:16s} {case.name:28s} max abs err {err}")
+        if err != 0:
+            raise SystemExit(f"kernel mismatch in {case.key} {case.name!r}")
+        if case.key in out:
+            continue
+        bound_ms = roof.bound_ms(case.nbytes)
+        lib = case.library
+        out[case.key] = t = {
+            "max_abs_err": err, "timed_on": case.name,
+            "ms": prof.cold_ms(case.kernel, flush, REPEATS),
+            "warm_ms": prof.warm_ms(case.kernel, CALLS, REPEATS),
+            "plain_ms": prof.warm_ms(case.plain, CALLS, REPEATS),
+            "library_ms": prof.cold_ms(lib, flush, REPEATS) if lib else None,
+            "library_warm_ms": (prof.warm_ms(lib, CALLS, REPEATS) if lib
+                                else None),
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+        libs = ("none" if lib is None else
+                f"{t['library_ms']:.4f} cold, {t['library_warm_ms']:.4f} warm")
+        print(f"    {t['ms']:.4f} ms cold, {t['warm_ms']:.4f} warm, plain "
+              f"{t['plain_ms']:.4f}, library {libs}, bound {bound_ms:.5f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the bench and probe paths
+# ---------------------------------------------------------------------------
+
+
+def bench_path(port: Port, tier_rows: dict) -> tuple[dict, list]:
+    """The bench entry point once (one pass), launches counted."""
+    rows = {t: tier_rows[t] for t in port.bench.TIERS}
+    port.torch.cuda.synchronize()
+    port.zero_counts()
+    lines = port.bench.run(rows, passes=1)
+    launches = port.counts()
+    port.require_launched("the bench path", launches,
+                          ("w2_encode", "w2_decode", "copy"))
+    for line in lines:
+        print("  " + json.dumps(line))
+    pipe, _, codec = lines
+    numbers = [v for v in codec.values() if isinstance(v, float)]
+    if pipe["zstd_level"] not in (0, 1) or not all(
+            np.isfinite(numbers)) or not codec["value"] > 0:
+        raise SystemExit("the bench's lines are not finite and positive")
+    return {k: v for k, v in launches.items() if v}, lines
+
+
+def probe_path(port: Port) -> tuple[dict, dict]:
+    """The capability probe once, launches counted; every case OK."""
+    port.torch.cuda.synchronize()
+    port.zero_counts()
+    result = port.probe.run()
+    launches = port.counts()
+    port.require_launched("the probe path", launches,
+                          ("copy", *port.probes.LAUNCHES))
+    for r in result["probes"]:
+        print(f"  {r['case']:28s} {'OK' if r['ok'] else 'WRONG'} "
+              f"{r['ms']:.4f} ms")
+    print(f"  copy GB/s by tile rows: {result['copy_gb_s']}; dst.copy_: "
+          f"{result['copy_library_gb_s']}")
+    print(f"  {json.dumps(result['versions'])}")
+    if not port.probe.ok(result):
+        raise SystemExit("a capability probe case is WRONG")
+    return {k: v for k, v in launches.items() if v}, result
 
 
 def main() -> int:
@@ -404,10 +524,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     port = Port()
     sig = port.signals
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    smi = port.profiling.card()
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -432,7 +549,10 @@ def main() -> int:
 
     # Phase 3: kernels against the plain versions.
     print("kernels against plain:")
+    t0 = time.perf_counter()
     tier_rows = sig.tiers(B, N)
+    print(f"  tiers {sorted(tier_rows)} at [{B}, {N}] generated on the host "
+          f"in {time.perf_counter() - t0:.1f} s")
     err = check_kernels(port, w2_cases(sig, tier_rows) + new_cases(sig))
     lap("3 kernels")
 
@@ -460,13 +580,40 @@ def main() -> int:
     inputs["v1 zz8 signal"] = inputs["v1 none8 signal"] = walk8
     inputs["v1 zz8 uniform"] = sig.uniform(np.random.default_rng(9), B * N,
                                            np.int8).reshape(B, N)
+    # Rows 8-9 and 12 of PERF.md's kernel table: the short chunks that
+    # pallas_codec3 took, as one batch, and codec2's input.
+    inputs["w2 zz16 batch64x8192"] = sig.TIERS["realistic"](64, 8192)
+    c2_sig, c2_zz = codec2_rows(port)
+    inputs["w4 none32 codec2"] = c2_zz
+    inputs["w2 zz16 codec2"] = c2_sig
     times = {label: time_pair(port, label, rows, flush)
              for label, rows in inputs.items()}
+    del flush
     lap("5 times")
+
+    # Phase 6: the copy and probe kernels against their plain versions.
+    print("copy and probe kernels against plain:")
+    aux = check_aux(port)
+    lap("6 copy and probe kernels")
+
+    # Phase 7: the bench path.
+    print("bench path:")
+    bench_launches, bench_lines = bench_path(port, tier_rows)
+    runs.append({"path": "bench", "launches": bench_launches})
+    lap("7 bench path")
+
+    # Phase 8: the probe path.
+    print("probe path:")
+    probe_launches, probe_result = probe_path(port)
+    runs.append({"path": "capability probe", "launches": probe_launches})
+    lap("8 probe path")
     for mod in ("jax", "vbz_compression_tpu"):
         if mod in sys.modules or any(m.startswith(mod + ".")
                                      for m in sys.modules):
             raise SystemExit(f"{mod} was imported")
+
+    def launched(name):
+        return sum(r["launches"].get(name, 0) for r in runs)
 
     kernels = []
     for pair, ((e_name, d_name), src, enc_sites, dec_sites) in PAIRS.items():
@@ -474,13 +621,11 @@ def main() -> int:
         head = times[f"{pair} {flavor} {content}"]
         for d, name, sites in (("enc", e_name, enc_sites),
                                ("dec", d_name, dec_sites)):
-            idx = 0 if d == "enc" else 1
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "vbz_compression_tpu_torch/csrc/" + src,
                 "replaces": sites[0], "also_replaces": sites[1:],
-                "launches": sum(r["launches"].get(pair, [0, 0])[idx]
-                                for r in runs),
+                "launches": launched(name),
                 "max_abs_err": err[name],
                 "ms": head[d + "_ms"], "plain_ms": head[d + "_plain_ms"],
                 "bound_ms": head[d + "_bound_ms"], "bound_by": "bytes",
@@ -488,8 +633,19 @@ def main() -> int:
                 "warm_ms": head[d + "_warm_ms"],
                 "timed_on": f"{pair} {flavor} {content} [{B}, {N}], L2 "
                             "flushed before the call"})
-    print(json.dumps({"times": times, "main_paths": runs, "card": smi,
-                      "seconds": seconds}))
+    for name, (src, site) in AUX.items():
+        t = aux[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": site,
+            "launches": launched(name), "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "warm_ms": t["warm_ms"],
+            "timed_on": f"{t['timed_on']}, L2 flushed before the call"})
+    print(json.dumps({"times": times, "main_paths": runs, "aux": aux,
+                      "bench": bench_lines,
+                      "probe_device_ops": probe_result["device_ops"],
+                      "card": smi, "seconds": seconds}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

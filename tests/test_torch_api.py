@@ -179,23 +179,19 @@ def test_sizes_and_encoder_choice(monkeypatch):
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port, and chip_smoke.py, import nothing of JAX or
-    of the JAX package."""
-    code = ("import sys\n"
+    """Every module of the port, found by walking the package, and
+    chip_smoke.py import nothing of JAX or of the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
             "import chip_smoke\n"
-            "import vbz_compression_tpu_torch\n"
-            "import vbz_compression_tpu_torch.api\n"
-            "import vbz_compression_tpu_torch.errors\n"
-            "import vbz_compression_tpu_torch.options\n"
-            "import vbz_compression_tpu_torch.signals\n"
-            "import vbz_compression_tpu_torch.models.codec\n"
-            "import vbz_compression_tpu_torch.ops._build\n"
-            "import vbz_compression_tpu_torch.ops._rows\n"
-            "import vbz_compression_tpu_torch.ops.scalar\n"
-            "import vbz_compression_tpu_torch.ops.svb_v1\n"
-            "import vbz_compression_tpu_torch.ops.svb_w2\n"
-            "import vbz_compression_tpu_torch.ops.svb_w4\n"
-            "import vbz_compression_tpu_torch.stage_profile\n"
+            "import vbz_compression_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "want = {'bench', 'stage_profile', 'ops.probes', 'utils.roofline', "
+            "'utils.profiling', 'tools.capability_probe', 'models.codec'}\n"
+            "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
+            "assert not missing, missing\n"
             "chip_smoke.Port()\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'vbz_compression_tpu') or m.startswith(('jax.', 'jaxlib.', "

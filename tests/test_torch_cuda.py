@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: E/D (W2), E4/D4 (W4) and V1E/V1D
 (v1) against their plain PyTorch versions and, through the backend, against
-the port's NumPy oracle. Exact.
+the port's NumPy oracle; the copy kernel CP and the capability probe's
+kernels against their plain versions. Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -15,7 +16,9 @@ import torch
 
 from vbz_compression_tpu_torch import oracle, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
-from vbz_compression_tpu_torch.ops import svb_v1, svb_w2, svb_w4
+from vbz_compression_tpu_torch.ops import probes, svb_v1, svb_w2, svb_w4
+from vbz_compression_tpu_torch.tools import capability_probe
+from vbz_compression_tpu_torch.utils import roofline
 
 # flavor -> (row module, encode, plain encode, decode, plain decode, dtype)
 _ROWS = {
@@ -96,3 +99,30 @@ def test_backend_batch_matches_oracle_on_card(cuda_device, size, zigzag,
         assert s == oracle.svb_compress(c, size, zigzag, version), c.size
         assert o.dtype == dtype
         np.testing.assert_array_equal(o, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,rows", [
+    (1 << 16, 8192), (3000, 600), (1000, 1),
+    # 4 GiB + 4 KiB: more int4 vectors than one grid of copy.cu covers.
+    ((1 << 23) + 8, 8)])
+def test_copy_matches_plain_on_card(cuda_device, R, rows):
+    gen = torch.Generator(device=cuda_device).manual_seed(R)
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (R, 128), dtype=torch.int32,
+                      device=cuda_device, generator=gen)
+    before = roofline.COPY_LAUNCHES
+    assert torch.equal(roofline.copy_blocked(x, rows),
+                       roofline.copy_blocked_plain(x))
+    assert roofline.COPY_LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain_on_card(cuda_device):
+    before = dict(probes.LAUNCHES)
+    cases = capability_probe.cases(cuda_device)
+    for case in cases:
+        assert capability_probe.max_abs_err(case.kernel(), case.plain()) == 0
+    torch.cuda.synchronize()
+    for key in before:
+        assert probes.LAUNCHES[key] == before[key] + sum(
+            c.key == key for c in cases)

@@ -1,0 +1,272 @@
+// Capability probe kernels for Hopper, sm_90a: the counterparts of the
+// Mosaic capability probes in tools/probe_*.py, one or two small kernels
+// each. On the TPU each probe asked whether Mosaic could lower an operation
+// the codec wanted; on the card each of these is plain CUDA, and the probe
+// checks it against its plain PyTorch version and times it.
+//
+//   dynroll  (tools/probe_dynroll.py, pallas_call :79): roll_2d (rows or
+//            lanes by a runtime amount, np.roll semantics; _kernel_dynlane
+//            :22, _kernel_dynsub :27), flat_shift_right (zero fill;
+//            _kernel_flatdyn :50), prefix_sum (inclusive, flat, mod 2^32,
+//            with row_scan.cuh's block scan; _kernel_mxu_psum :54)
+//   i8dma    (tools/probe_i8dma.py :45, :64): store_bytes (int32 -> int8 at
+//            any byte offset; _wr_kernel :17), load_bytes (int8 window ->
+//            int32, sign-extended; _rd_kernel :28)
+//   keypack  (tools/probe_keypack.py :50, :64): pack_keys, unpack_keys
+//            (four consecutive flat 2-bit codes per byte, code j at bits
+//            2j; _pack_kernel :15, _unpack_kernel :29) with bit operations
+//            where the TPU used a bf16 matmul
+//   widen    (tools/probe_widen.py :62): fetch_i32 (k_i32 :32), fetch_i8
+//            (int8 widened to int32 with & 0xFF; k_i8 :40, k_i8_2d :49)
+//   i16roll  (tools/probe_i16roll.py :76, kernel_factory :51): one stage of
+//            the flat shift-and-select butterfly, at int16 and int32
+//
+// Bounds: every kernel but the butterfly moves each byte once and does next
+// to no arithmetic, so bytes bound it; the butterfly's ten stages each
+// reread the array, which stays in L2 at the probe's size (270 KB at
+// int32), so its bound is its bytes in and out; its integer operations are
+// not counted (the data sheet gives no int32 rate), and at the probe's size
+// each stage takes a launch's latency. Design:
+// grid-stride loops, neighbouring threads on neighbouring elements, 16-byte
+// vectors where the layout allows; the prefix sum is one block of 1024
+// threads carrying its sum from one 1024-value step to the next, as the
+// row scans of the codec do.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "row_scan.cuh"
+
+namespace {
+
+using namespace vbz;
+
+constexpr int kProbeThreads = 256;
+constexpr int kScanBlock = 1024;
+constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks per SM of an H100
+
+unsigned grid_for(long long n) {
+  const long long blocks = (n + kProbeThreads - 1) / kProbeThreads;
+  return static_cast<unsigned>(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1)
+                                                   : kMaxBlocks);
+}
+
+__device__ __forceinline__ long long first_index() {
+  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ long long grid_stride() {
+  return static_cast<long long>(gridDim.x) * blockDim.x;
+}
+
+// out[r, l] = x[(r - a_rows) mod R, (l - a_lanes) mod L]; a_rows in [0, R),
+// a_lanes in [0, L).
+__global__ void roll_2d(const int* __restrict__ x, int* __restrict__ out,
+                        int R, int L, int a_rows, int a_lanes) {
+  const long long n = static_cast<long long>(R) * L;
+  for (long long i = first_index(); i < n; i += grid_stride()) {
+    const int r = static_cast<int>(i / L);
+    const int l = static_cast<int>(i % L);
+    const int sr = r >= a_rows ? r - a_rows : r - a_rows + R;
+    const int sl = l >= a_lanes ? l - a_lanes : l - a_lanes + L;
+    out[i] = x[static_cast<long long>(sr) * L + sl];
+  }
+}
+
+// out[i] = x[i - a] for i >= a, else 0 (flat, row-major).
+__global__ void flat_shift_right(const int* __restrict__ x,
+                                 int* __restrict__ out, long long n,
+                                 long long a) {
+  for (long long i = first_index(); i < n; i += grid_stride()) {
+    out[i] = i >= a ? x[i - a] : 0;
+  }
+}
+
+// Inclusive prefix sum (mod 2^32) of n int32, one block.
+__global__ void __launch_bounds__(kScanBlock)
+    prefix_sum(const int* __restrict__ x, int* __restrict__ out, long long n) {
+  __shared__ uint32_t smem[kScanBlock / 32];
+  uint32_t carry = 0;
+  for (long long base = 0; base < n; base += kScanBlock) {
+    const long long i = base + threadIdx.x;
+    const uint32_t v = i < n ? static_cast<uint32_t>(x[i]) : 0u;
+    uint32_t total;
+    const uint32_t before = block_exclusive_scan<kScanBlock>(v, &total, smem);
+    if (i < n) out[i] = static_cast<int>(carry + before + v);
+    carry += total;
+  }
+}
+
+// buf[off + i] = int8(x[i]): the low byte, at any byte offset.
+__global__ void store_bytes(const int* __restrict__ x, int8_t* __restrict__ buf,
+                            long long off, long long n) {
+  for (long long i = first_index(); i < n; i += grid_stride()) {
+    buf[off + i] = static_cast<int8_t>(x[i]);
+  }
+}
+
+// out[i] = int32(buf[off + i]), sign-extended.
+__global__ void load_bytes(const int8_t* __restrict__ buf,
+                           int* __restrict__ out, long long off, long long n) {
+  for (long long i = first_index(); i < n; i += grid_stride()) {
+    out[i] = static_cast<int>(buf[off + i]);
+  }
+}
+
+// keys[j] = sum over m < 4 of (codes[4j + m] & 3) << 2m; codes 16-byte
+// aligned, so each key is one int4 load.
+__global__ void pack_keys(const int4* __restrict__ codes,
+                          uint8_t* __restrict__ keys, long long nkeys) {
+  for (long long j = first_index(); j < nkeys; j += grid_stride()) {
+    const int4 c = codes[j];
+    keys[j] = static_cast<uint8_t>((c.x & 3) | ((c.y & 3) << 2) |
+                                   ((c.z & 3) << 4) | ((c.w & 3) << 6));
+  }
+}
+
+// codes[4j + m] = (keys[j] >> 2m) & 3, one int4 store per key.
+__global__ void unpack_keys(const uint8_t* __restrict__ keys,
+                            int4* __restrict__ codes, long long nkeys) {
+  for (long long j = first_index(); j < nkeys; j += grid_stride()) {
+    const int k = keys[j];
+    codes[j] = make_int4(k & 3, (k >> 2) & 3, (k >> 4) & 3, (k >> 6) & 3);
+  }
+}
+
+// out = data[:4 * nvec], int4 vectors.
+__global__ void fetch_i32(const int4* __restrict__ data, int4* __restrict__ out,
+                          long long nvec) {
+  for (long long v = first_index(); v < nvec; v += grid_stride()) {
+    out[v] = data[v];
+  }
+}
+
+// out = data[:4 * nwords] & 0xFF: four bytes in, one int4 out, so that
+// loads and stores are both coalesced.
+__global__ void fetch_i8(const uint32_t* __restrict__ data,
+                         int4* __restrict__ out, long long nwords) {
+  for (long long v = first_index(); v < nwords; v += grid_stride()) {
+    const uint32_t b = data[v];
+    out[v] = make_int4(static_cast<int>(b & 0xFFu),
+                       static_cast<int>((b >> 8) & 0xFFu),
+                       static_cast<int>((b >> 16) & 0xFFu),
+                       static_cast<int>(b >> 24));
+  }
+}
+
+// One butterfly stage j: rolled = in shifted right by 2^j (flat, zero
+// fill); take rolled where its bit 1+j is set, else keep in where in's bit
+// 1+j is clear, else 0.
+template <typename T>
+__global__ void butterfly_stage(const T* __restrict__ in, T* __restrict__ out,
+                                long long n, int j) {
+  const long long s = 1LL << j;
+  for (long long i = first_index(); i < n; i += grid_stride()) {
+    const int c = in[i];
+    const int rolled = i >= s ? static_cast<int>(in[i - s]) : 0;
+    const int bit_rolled = (rolled >> (1 + j)) & 1;
+    const int bit_stay = (c >> (1 + j)) & 1;
+    out[i] = static_cast<T>(bit_rolled ? rolled : (bit_stay == 0 ? c : 0));
+  }
+}
+
+template <typename T>
+int butterfly(const void* x, void* out, void* scratch, long long n, int stages,
+              cudaStream_t s) {
+  const T* src = static_cast<const T*>(x);
+  for (int k = 0; k < stages; ++k) {
+    const int j = stages - 1 - k;
+    // Alternate so that the last stage (j == 0) writes out.
+    T* dst = static_cast<T*>(j % 2 == 0 ? out : scratch);
+    butterfly_stage<T><<<grid_for(n), kProbeThreads, 0, s>>>(src, dst, n, j);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    src = dst;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+#define VBZ_STREAM static_cast<cudaStream_t>(stream)
+#define VBZ_LAUNCH(kernel, n, ...)                                         \
+  kernel<<<grid_for(n), kProbeThreads, 0, VBZ_STREAM>>>(__VA_ARGS__);      \
+  return static_cast<int>(cudaGetLastError())
+
+// x, out: [R, L] int32; a_rows in [0, R), a_lanes in [0, L).
+int vbz_probe_roll(const int* x, int* out, int R, int L, int a_rows,
+                   int a_lanes, void* stream) {
+  VBZ_LAUNCH(roll_2d, static_cast<long long>(R) * L, x, out, R, L, a_rows,
+             a_lanes);
+}
+
+int vbz_probe_flat_shift_right(const int* x, int* out, long long n,
+                               long long a, void* stream) {
+  VBZ_LAUNCH(flat_shift_right, n, x, out, n, a);
+}
+
+int vbz_probe_prefix_sum(const int* x, int* out, long long n, void* stream) {
+  prefix_sum<<<1, kScanBlock, 0, VBZ_STREAM>>>(x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// buf holds at least off + n bytes.
+int vbz_probe_store_bytes(const int* x, int8_t* buf, long long off,
+                          long long n, void* stream) {
+  VBZ_LAUNCH(store_bytes, n, x, buf, off, n);
+}
+
+int vbz_probe_load_bytes(const int8_t* buf, int* out, long long off,
+                         long long n, void* stream) {
+  VBZ_LAUNCH(load_bytes, n, buf, out, off, n);
+}
+
+// codes: 4 * nkeys int32, 16-byte aligned.
+int vbz_probe_pack_keys(const int* codes, uint8_t* keys, long long nkeys,
+                        void* stream) {
+  VBZ_LAUNCH(pack_keys, nkeys, reinterpret_cast<const int4*>(codes), keys,
+             nkeys);
+}
+
+int vbz_probe_unpack_keys(const uint8_t* keys, int* codes, long long nkeys,
+                          void* stream) {
+  VBZ_LAUNCH(unpack_keys, nkeys, keys, reinterpret_cast<int4*>(codes), nkeys);
+}
+
+// data, out 16-byte aligned; n % 4 == 0.
+int vbz_probe_fetch_i32(const void* data, int* out, long long n,
+                        void* stream) {
+  VBZ_LAUNCH(fetch_i32, n / 4, static_cast<const int4*>(data),
+             reinterpret_cast<int4*>(out), n / 4);
+}
+
+// data, out 16-byte aligned; n % 4 == 0.
+int vbz_probe_fetch_i8(const void* data, int* out, long long n,
+                       void* stream) {
+  VBZ_LAUNCH(fetch_i8, n / 4, static_cast<const uint32_t*>(data),
+             reinterpret_cast<int4*>(out), n / 4);
+}
+
+// x, out, scratch: n values of elem_bytes (2: int16, 4: int32); stages in
+// [1, 15]. scratch may be null when stages == 1.
+int vbz_probe_butterfly(const void* x, void* out, void* scratch, long long n,
+                        int stages, int elem_bytes, void* stream) {
+  if (stages < 1 || stages > 15) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (elem_bytes == 2) {
+    return butterfly<int16_t>(x, out, scratch, n, stages, VBZ_STREAM);
+  }
+  if (elem_bytes == 4) {
+    return butterfly<int32_t>(x, out, scratch, n, stages, VBZ_STREAM);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#undef VBZ_LAUNCH
+#undef VBZ_STREAM
+
+}  // extern "C"

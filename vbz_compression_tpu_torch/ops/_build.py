@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>_codec.cu`` is compiled by ``nvcc`` into a shared library
-of its own with a plain C interface, ``libvbz_<name>.so``, and loaded with
-:mod:`ctypes`, so no PyTorch headers are compiled. The headers
+Each source of ``SOURCES`` (the three codecs, ``copy.cu`` and
+``probe.cu``) is compiled by ``nvcc`` into a shared library of its own with
+a plain C interface, ``libvbz_<name>.so``, and loaded with :mod:`ctypes`,
+so no PyTorch headers are compiled. The headers
 (``csrc/*.cuh``) are part of every library's content hash, so editing one
 rebuilds all of them. Libraries land in
 ``build/torch_kernels/<hash>/libvbz_<name>.so`` at the root of the checkout,
@@ -30,6 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# library -> its source in csrc/.
+SOURCES = {"w2": "w2_codec.cu", "w4": "w4_codec.cu", "v1": "v1_codec.cu",
+           "copy": "copy.cu", "probe": "probe.cu"}
 # library -> entry point -> argtypes; every entry point returns a
 # cudaError_t as int.
 _SIGNATURES = {
@@ -56,12 +61,37 @@ _SIGNATURES = {
         # keys, data, counts, out, scratch, B, N, D, zigzag, stream
         "vbz_v1_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "copy": {
+        # x, out, tiles, rows, stream
+        "vbz_copy_blocked": [_P, _P, _L, _I, _P],
+    },
+    "probe": {
+        # x, out, R, L, a_rows, a_lanes, stream
+        "vbz_probe_roll": [_P, _P, _I, _I, _I, _I, _P],
+        # x, out, n, a, stream
+        "vbz_probe_flat_shift_right": [_P, _P, _L, _L, _P],
+        # x, out, n, stream
+        "vbz_probe_prefix_sum": [_P, _P, _L, _P],
+        # x, buf, off, n, stream
+        "vbz_probe_store_bytes": [_P, _P, _L, _L, _P],
+        # buf, out, off, n, stream
+        "vbz_probe_load_bytes": [_P, _P, _L, _L, _P],
+        # codes, keys, nkeys, stream
+        "vbz_probe_pack_keys": [_P, _P, _L, _P],
+        # keys, codes, nkeys, stream
+        "vbz_probe_unpack_keys": [_P, _P, _L, _P],
+        # data, out, n, stream
+        "vbz_probe_fetch_i32": [_P, _P, _L, _P],
+        "vbz_probe_fetch_i8": [_P, _P, _L, _P],
+        # x, out, scratch, n, stages, elem_bytes, stream
+        "vbz_probe_butterfly": [_P, _P, _P, _L, _I, _I, _P],
+    },
 }
 NAMES = tuple(_SIGNATURES)
 
 
 def _source(name: str) -> Path:
-    return CSRC / f"{name}_codec.cu"
+    return CSRC / SOURCES[name]
 
 
 def _headers() -> list[Path]:
@@ -120,7 +150,7 @@ def build_all(names=NAMES) -> dict:
 
 @functools.cache
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name`` (w2, w4 or v1), built on first
+    """The loaded kernel library ``name`` (one of ``NAMES``), built on first
     use."""
     if name not in _SIGNATURES:
         raise ValueError(f"no kernel library {name!r} (want one of {NAMES})")

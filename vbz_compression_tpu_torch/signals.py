@@ -1,11 +1,163 @@
-"""Test signals for the port's smoke run and profiles, made with numpy from
-a seed: the four ``bench.py`` tiers as B rows of N int16, a corpus of reads
-of log-uniform length, and content for the other flavors (int32, int8 and
-unsigned signals, uniform noise, the v1 odd-nibble pattern)."""
+"""Test signals for the port's smoke run, bench and profiles, made with
+numpy from a seed: the ``bench.py`` tiers as B rows of N int16 (its
+``clean`` and ``mixed`` tiers byte for byte, through :func:`gen_signal`),
+a corpus of reads of log-uniform length, and content for the other flavors
+(int32, int8 and unsigned signals, uniform noise, the v1 odd-nibble
+pattern)."""
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
+
+# bench.py's workload arguments (bench.py:75-76): MB, sigma, lo, hi, seed.
+CLEAN_ARGS = (32, 12, 0, 2000, 42)
+MIXED_ARGS = (32, 50, -30000, 30000, 7)
+
+# glibc's logf (sysdeps/ieee754/flt-32/e_logf.c and e_logf_data.c): 16
+# (1/c, log c) pairs, ln 2 and the log1p polynomial, in double.
+_LOGF_TABLE = np.array([float.fromhex(h) for h in (
+    "0x1.661ec79f8f3bep+0", "-0x1.57bf7808caadep-2",
+    "0x1.571ed4aaf883dp+0", "-0x1.2bef0a7c06ddbp-2",
+    "0x1.49539f0f010b0p+0", "-0x1.01eae7f513a67p-2",
+    "0x1.3c995b0b80385p+0", "-0x1.b31d8a68224e9p-3",
+    "0x1.30d190c8864a5p+0", "-0x1.6574f0ac07758p-3",
+    "0x1.25e227b0b8ea0p+0", "-0x1.1aa2bc79c8100p-3",
+    "0x1.1bb4a4a1a343fp+0", "-0x1.a4e76ce8c0e5ep-4",
+    "0x1.12358f08ae5bap+0", "-0x1.1973c5a611cccp-4",
+    "0x1.0953f419900a7p+0", "-0x1.252f438e10c1ep-5",
+    "0x1.0000000000000p+0", "0x0.0p+0",
+    "0x1.e608cfd9a47acp-1", "0x1.aa5aa5df25984p-5",
+    "0x1.ca4b31f026aa0p-1", "0x1.c5e53aa362eb4p-4",
+    "0x1.b2036576afce6p-1", "0x1.526e57720db08p-3",
+    "0x1.9c2d163a1aa2dp-1", "0x1.bc2860d224770p-3",
+    "0x1.886e6037841edp-1", "0x1.1058bc8a07ee1p-2",
+    "0x1.767dcf5534862p-1", "0x1.4043057b6ee09p-2")]).reshape(16, 2)
+_LOGF_LN2 = float.fromhex("0x1.62e42fefa39efp-1")
+_LOGF_POLY = [float.fromhex(h) for h in (
+    "-0x1.00ea348b88334p-2", "0x1.5575b0be00b6ap-2", "-0x1.ffffef20a4123p-2")]
+_PAIRS_PER_CHUNK = 1 << 21
+
+
+@functools.cache
+def _libm_logf():
+    fn = ctypes.CDLL("libm.so.6").logf
+    fn.argtypes = [ctypes.c_float]
+    fn.restype = ctypes.c_float
+    return fn
+
+
+def glibc_logf(x: np.ndarray) -> np.ndarray:
+    """glibc's ``logf`` of positive normal float32 values, vectorised.
+
+    glibc evaluates a table lookup and a degree-3 polynomial in double and
+    rounds once to float; this does the same in numpy. Where the double
+    result lies so near a float32 rounding boundary that the fused
+    multiply-adds of glibc's build could round it the other way, the value
+    is asked of ``libm`` itself (a few in 10^5).
+    """
+    ix = x.view(np.uint32).astype(np.int64)
+    tmp = ix - 0x3F330000
+    i = (tmp >> 19) & 15
+    k = tmp >> 23
+    z = (ix - (tmp & ~0x7FFFFF)).astype(np.uint32).view(np.float32).astype(
+        np.float64)
+    r = z * _LOGF_TABLE[i, 0] - 1
+    y0 = _LOGF_TABLE[i, 1] + k * _LOGF_LN2
+    r2 = r * r
+    y = _LOGF_POLY[1] * r + _LOGF_POLY[2]
+    y = _LOGF_POLY[0] * r2 + y
+    y = y * r2 + (y0 + r)
+    f = y.astype(np.float32)
+    fd = f.astype(np.float64)
+    toward = np.where(y > fd, np.float32(np.inf), np.float32(-np.inf))
+    mid = 0.5 * (fd + np.nextafter(f, toward).astype(np.float64))
+    near = np.nonzero(np.abs(y - mid)
+                      <= 2.0 ** -40 * (np.abs(y0) + np.abs(r) + np.abs(y)))[0]
+    if near.size:
+        logf = _libm_logf()
+        f[near] = [logf(float(v)) for v in x[near]]
+    return f
+
+
+def _f32_sum_once(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32(a + b) with a single rounding (a fused multiply-add's), for
+    float64 ``a`` and ``b``: the double sum is made round-to-odd from its
+    exact error term, then rounded to float32."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    even = (s.view(np.uint64) & 1) == 0
+    toward = np.where(err > 0, np.inf, -np.inf)
+    s = np.where((err != 0) & even, np.nextafter(s, toward), s)
+    return s.astype(np.float32)
+
+
+def _normals(seed: int, n: int) -> np.ndarray:
+    """The first ``n`` draws of libstdc++'s ``normal_distribution<float>``
+    (mean 0, sigma 1) on ``std::mt19937(seed)``: the polar method, pairs of
+    words per attempt, y * mult returned first and x * mult kept for the
+    next draw."""
+    bits = np.random.MT19937()
+    bits._legacy_seeding(seed)                      # std::mt19937(seed)
+    below_one = np.nextafter(np.float32(1), np.float32(0))
+    want = (n + 1) // 2
+    out = []
+    while want:
+        tries = min(int(want / 0.78) + 64, _PAIRS_PER_CHUNK)
+        words = bits.random_raw(2 * tries).astype(np.uint32)
+        # generate_canonical<float>: float(word) / 2^32, kept below 1.
+        u = np.minimum(words.astype(np.float32) * np.float32(2.0 ** -32),
+                       below_one)
+        v = ((2 * u).astype(np.float64) - 1.0).astype(np.float32)
+        x, y = v[0::2], v[1::2]
+        # r2 = x * x + y * y, contracted by the compiler to fma(x, x, y * y).
+        r2 = _f32_sum_once(x.astype(np.float64) ** 2,
+                           (y * y).astype(np.float64))
+        keep = np.nonzero((r2 <= 1.0) & (r2 != 0.0))[0][:want]
+        x, y, r2 = x[keep], y[keep], r2[keep]
+        mult = np.sqrt(np.float32(-2) * glibc_logf(r2) / r2)
+        out.append(np.stack([y * mult, x * mult], axis=1).reshape(-1))
+        want -= keep.size
+    return np.concatenate(out)[:n]
+
+
+def _reset_walk(steps: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """acc = mid; for each step: acc += step (float32), back to mid when
+    outside [lo, hi]; int16 of acc (truncated). Runs between resets are
+    summed by np.add.accumulate, which adds in order."""
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    mid = np.float32(0.5) * np.float32(lo + hi)
+    out = np.empty(steps.size, np.float32)
+    acc, p, window = mid, 0, 4096
+    while p < steps.size:
+        seg = np.concatenate([[acc], steps[p:p + window]]).astype(np.float32)
+        run = np.add.accumulate(seg, dtype=np.float32)[1:]
+        out_of = np.nonzero((run < lo32) | (run > hi32))[0]
+        if out_of.size == 0:
+            out[p:p + run.size] = run
+            acc, p = run[-1], p + run.size
+            window = min(2 * window, 1 << 20)
+            continue
+        j = int(out_of[0])
+        out[p:p + j] = run[:j]
+        out[p + j] = acc = mid
+        p += j + 1
+        window = max(4096, 4 * (j + 1))
+    return out.astype(np.int16)
+
+
+def gen_signal(mb: int, sigma: float, lo: int, hi: int,
+               seed: int) -> np.ndarray:
+    """The ``mb`` MiB of int16 that ``native/gen_signal OUT mb sigma lo hi
+    seed`` writes, byte for byte, without building or running it: a float32
+    walk of ``normal_distribution<float>(0, sigma)`` steps from
+    ``(lo + hi) / 2`` that resets there when it leaves [lo, hi]."""
+    n = (mb << 20) // 2
+    steps = _normals(seed, n) * np.float32(sigma)
+    return _reset_walk(steps, lo, hi)
 
 
 def walk_with_reads(rng, total: int) -> np.ndarray:
@@ -23,19 +175,31 @@ def walk_with_reads(rng, total: int) -> np.ndarray:
     return np.clip(sig, 0, 2000).astype(np.int16)
 
 
+def _bench_tier(args, B: int, N: int) -> np.ndarray:
+    """The first B*N values of a ``gen_signal`` workload, as [B, N]."""
+    mb = max(1, -(-B * N * 2 // (1 << 20)))
+    return gen_signal(mb, *args[1:])[:B * N].reshape(B, N)
+
+
+# Each content tier, [B, N] int16 from (B, N). clean and mixed are
+# bench.py's workload files (at [4, 4M] the whole 32 MiB of each); pure is
+# bench.py's in-process walk, hard its uniform int16; realistic is a walk
+# with read boundaries made here.
+TIERS = {
+    "realistic": lambda B, N: walk_with_reads(
+        np.random.default_rng(42), B * N).reshape(B, N),
+    "clean": lambda B, N: _bench_tier(CLEAN_ARGS, B, N),
+    "mixed": lambda B, N: _bench_tier(MIXED_ARGS, B, N),
+    "pure": lambda B, N: np.clip(500 + np.cumsum(np.random.default_rng(
+        11).normal(0, 12, (B, N)), axis=1), -2000, 2000).astype(np.int16),
+    "hard": lambda B, N: np.random.default_rng(13).integers(
+        -32768, 32767, (B, N), dtype=np.int16),
+}
+
+
 def tiers(B: int, N: int) -> dict:
-    """The four content tiers, each [B, N] int16: realistic (walk with read
-    boundaries), mixed (sigma=50 on +-30000), pure (the bench.py walk) and
-    hard (uniform int16)."""
-    pure = np.clip(500 + np.cumsum(np.random.default_rng(11).normal(
-        0, 12, (B, N)), axis=1), -2000, 2000).astype(np.int16)
-    realistic = walk_with_reads(np.random.default_rng(42), B * N).reshape(B, N)
-    w = np.cumsum(np.random.default_rng(7).normal(0, 50, (B, N)), axis=1)
-    mixed = ((w + 30000) % 60000 - 30000).astype(np.int16)
-    hard = np.random.default_rng(13).integers(-32768, 32767, (B, N),
-                                              dtype=np.int16)
-    return {"realistic": realistic, "mixed": mixed, "pure": pure,
-            "hard": hard}
+    """Every tier of ``TIERS`` as [B, N] int16."""
+    return {name: make(B, N) for name, make in TIERS.items()}
 
 
 def corpus(reads: int = 64, shortest: int = 2_000, longest: int = 4_000_000,

@@ -14,8 +14,10 @@ the realistic tier of ``chip_smoke.py`` (:mod:`.signals`, the same seeds):
      after each stage, ms per stage;
   3. ``kernel_us``: kernels E and D on the realistic tier [4, 4M], one call
      per timing, once after a 256 MiB buffer is zeroed (L2 flushed) and once
-     without; the GPU is kept busy while the host enqueues, so host launch
-     gaps stay out of both;
+     without (``utils.profiling.cold_ms`` / ``warm_ms``); the GPU is kept
+     busy while the host enqueues, so host launch gaps stay out of both;
+     ``bound_us``: the bytes each must move
+     (``utils.roofline.codec_bytes``) at the card's data-sheet rate;
   4. ``profiler_us``: device time per CUDA kernel launch from
      ``torch.profiler`` over 5 encode and 5 decode calls on that tier.
 
@@ -32,7 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import struct
-import subprocess
 import time
 
 import numpy as np
@@ -42,6 +43,7 @@ from . import CompressionOptions, signals
 from . import api as _pipeline
 from .models import codec
 from .ops import svb_w2
+from .utils import profiling, roofline
 
 OPTIONS = (0, 2, 1, 0)
 TIER = (4, 4 << 20)
@@ -202,27 +204,12 @@ def _api_and_stages(backend, reads, options, repeats: int) -> dict:
             "decode_stages": _best(dec_runs)}
 
 
-def _kernel_us(fn, flush: torch.Tensor, cold: bool, repeats: int) -> float:
-    best = float("inf")
-    for _ in range(repeats):
-        torch.cuda._sleep(2_000_000)  # device busy while the host enqueues
-        if cold:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) * 1e3)
-    return best
-
-
 def _kernels(device, repeats: int) -> dict:
     B, N = TIER
-    x = torch.from_numpy(signals.tiers(B, N)["realistic"]).to(device)
+    x = torch.from_numpy(signals.TIERS["realistic"](B, N)).to(device)
     lens = torch.full((B,), N, dtype=torch.int32, device=device)
-    keys, data, _ = svb_w2.encode_w2_rows(x, lens, "zz16")
+    keys, data, data_len = svb_w2.encode_w2_rows(x, lens, "zz16")
+    enc_bytes, dec_bytes = roofline.codec_bytes(x, keys, data_len)
 
     def enc():
         svb_w2.encode_w2_rows(x, lens, "zz16")
@@ -231,22 +218,21 @@ def _kernels(device, repeats: int) -> dict:
         svb_w2.decode_w2_rows(keys, data, lens, "zz16")
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    out = {name: {"warm": _kernel_us(fn, flush, False, repeats),
-                  "cold": _kernel_us(fn, flush, True, repeats)}
+    out = {name: {"warm": profiling.warm_ms(fn, 1, repeats) * 1e3,
+                  "cold": profiling.cold_ms(fn, flush, repeats) * 1e3}
            for name, fn in (("E", enc), ("D", dec))}
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling.trace() as prof:
         for _ in range(PROFILED_CALLS):
             enc()
             dec()
-        torch.cuda.synchronize()
     per_launch = {e.key: {"us": e.self_device_time_total / e.count,
                           "launches": e.count}
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0 and e.count}
     return {"tier": f"realistic [{B}, {N}] int16", "kernel_us": out,
+            "bound_us": {"E": roofline.bound_ms(enc_bytes) * 1e3,
+                         "D": roofline.bound_ms(dec_bytes) * 1e3},
             "profiler_us": per_launch}
 
 
@@ -257,9 +243,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("stage_profile: no CUDA device is visible")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    smi = profiling.card()
     print(smi)
     device = torch.device("cuda")
     backend = codec.TorchSvbBackend(device)
