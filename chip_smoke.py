@@ -13,8 +13,11 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      probe), one nvcc per source, all at once;
   3. kernels against their plain PyTorch versions on the card, bit for bit,
      one row of each case also against the port's NumPy oracle:
-     E/D (W2) on the four int16 tiers (B=4 rows of 4M), the int16 wrap
-     extremes, zz8 rows, ragged row lengths and a batch of unlike rows;
+     E/D (W2) on the int16 tiers (B=4 rows of 4M), the int16 wrap
+     extremes, zz8 rows, ragged row lengths, a batch of unlike rows, and
+     the look-back cases: lengths on tile edges, all-code-0 and all-code-1
+     rows, data rows cut short, views at storage offsets off the 16-byte
+     alignment, 20 repeated calls giving identical bytes;
      E4/D4 (W4) per flavor on [4, 4M] signal-like and uniform content, the
      code boundaries, the 32-bit wrap, ragged lengths and unlike rows;
      V1E/V1D (v1) per flavor on [4, 4M] int8, the odd-nibble input, ragged
@@ -27,8 +30,8 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
   5. times: kernel (L2 flushed before each call, and back to back) and plain
      version per tier, flavor and direction, with each kernel's bound (the
      bytes it must move at the card's 3.35 TB/s), and the batch API host to
-     host per main path; also E/D on a [64, 8192] batch and E4 none32 / D
-     on codec2's [1, 4096] input;
+     host per main path; also E/D on zz8 int8 walks [4, 4M] and a [64, 8192]
+     batch, and E4 none32 / D on codec2's [1, 4096] input;
   6. copy and probe kernels against their plain versions on the card, bit
      for bit: CP at 256 MiB and on row counts that are not powers of two,
      every case of the capability probe; each timed (L2 flushed, and back
@@ -178,11 +181,13 @@ def _full(rows: np.ndarray) -> np.ndarray:
     return np.full(rows.shape[0], rows.shape[1], np.int32)
 
 
-def w2_cases(sig, tier_rows: dict) -> list:
+def w2_cases(sig, tier_rows: dict, tile: int) -> list:
     """(name, pair, flavor, rows [B, N], lens [B]) for kernels E and D."""
     rng = np.random.default_rng(5)
     cases = [(f"tier {k}", "w2", "zz16", v, _full(v))
              for k, v in tier_rows.items()]
+    cases += [(name, "w2", flavor, rows, lens)
+              for name, flavor, rows, lens in sig.w2_tile_cases(tile)]
     wrap = np.tile(np.array([-32768, 32767], np.int16), (2, 32768))
     cases.append(("wrap extremes", "w2", "zz16", wrap, _full(wrap)))
     n8 = 1 << 20
@@ -317,6 +322,74 @@ def check_kernels(port: Port, cases) -> dict:
         err[e_name] = max(err.get(e_name, 0), enc_err)
         err[d_name] = max(err.get(d_name, 0), dec_err)
     return err
+
+
+def _shifted(t, shift: int):
+    """A contiguous copy of t that starts ``shift`` elements into its own
+    buffer, so its address sits off the 16-byte alignment."""
+    buf = t.new_empty(t.numel() + shift)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_w2_lookback(port: Port, tile: int, rows: np.ndarray) -> None:
+    """D on data rows cut shorter than the keys require (the next row's
+    bytes would show if D read at or past the cut); E and D on views at
+    storage offsets off the vector alignment; and 20 calls of E and D on
+    ``rows`` giving the same bytes: a look-back race would make them differ
+    from call to call."""
+    torch, w2 = port.torch, port.mods["w2"]
+    for flavor in ("zz16", "zz8"):
+        x, lens = next(c[2:] for c in port.signals.w2_tile_cases(tile)
+                       if c[:2] == ("all code 1", flavor))
+        n = torch.from_numpy(lens).to(DEVICE)
+        keys, data, data_len = w2.encode_w2_rows(torch.from_numpy(x).to(
+            DEVICE), n, flavor)
+        for D in (1, tile - 1, 2 * tile + 1, int(data_len.min()) - 3):
+            short = data[:, :D].contiguous()
+            if not torch.equal(w2.decode_w2_rows(keys, short, n, flavor),
+                               w2.decode_w2_rows_plain(keys, short, n,
+                                                       flavor)):
+                raise SystemExit(f"w2 {flavor}: D differs from plain on a "
+                                 f"data row cut at {D} bytes")
+    print("  w2 short data rows: D equals plain at every cut, zz16 and zz8")
+    for flavor, shift in (("zz16", 1), ("zz16", 2), ("zz16", 4), ("zz8", 1),
+                          ("zz8", 2), ("zz8", 3), ("zz8", 4)):
+        x, lens = next(c[2:] for c in port.signals.w2_tile_cases(tile)
+                       if c[:2] == ("tile edges", flavor))
+        n = torch.from_numpy(lens).to(DEVICE)
+        x = _shifted(torch.from_numpy(x).to(DEVICE), shift)
+        keys, data, data_len = w2.encode_w2_rows(x, n, flavor)
+        k0, d0, l0 = w2.encode_w2_rows_plain(x, n, flavor)
+        written = torch.arange(d0.shape[1], device=DEVICE)[None] < l0[:, None]
+        same = (torch.equal(keys, k0) and torch.equal(data_len, l0)
+                and torch.equal(torch.where(written, data, 0),
+                                torch.where(written, d0, 0))
+                and torch.equal(
+                    w2.decode_w2_rows(_shifted(keys, shift),
+                                      _shifted(data, shift), n, flavor),
+                    w2.decode_w2_rows_plain(keys, data, n, flavor)))
+        if not same:
+            raise SystemExit(f"w2 {flavor}: a view {shift} elements off its "
+                             "buffer's start differs from plain")
+    print("  w2 views at storage offsets 1, 2, 4 (int16) and 1-4 (int8): E "
+          "and D equal plain")
+    x = torch.from_numpy(rows).to(DEVICE)
+    n = torch.from_numpy(_full(rows)).to(DEVICE)
+    keys, data, data_len = w2.encode_w2_rows(x, n, "zz16")
+    written = (torch.arange(data.shape[1], device=DEVICE)[None]
+               < data_len[:, None])
+    for _ in range(20):
+        k, d, l = w2.encode_w2_rows(x, n, "zz16")
+        same = (torch.equal(k, keys) and torch.equal(l, data_len)
+                and torch.equal(torch.where(written, d, 0),
+                                torch.where(written, data, 0))
+                and torch.equal(w2.decode_w2_rows(keys, data, n, "zz16"), x))
+        if not same:
+            raise SystemExit("w2: a repeated call gave other bytes")
+    print(f"  w2 repeats: 20 calls of E and D on {list(rows.shape)} give "
+          "identical bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +626,9 @@ def main() -> int:
     tier_rows = sig.tiers(B, N)
     print(f"  tiers {sorted(tier_rows)} at [{B}, {N}] generated on the host "
           f"in {time.perf_counter() - t0:.1f} s")
-    err = check_kernels(port, w2_cases(sig, tier_rows) + new_cases(sig))
+    tile = port.build.lib("w2").vbz_w2_tile()
+    err = check_kernels(port, w2_cases(sig, tier_rows, tile) + new_cases(sig))
+    check_w2_lookback(port, tile, tier_rows["realistic"])
     lap("3 kernels")
 
     # Phase 4: the main paths.
@@ -578,6 +653,7 @@ def main() -> int:
     walk8 = np.stack([sig.int8_walk(np.random.default_rng(b), N)
                       for b in range(B)])
     inputs["v1 zz8 signal"] = inputs["v1 none8 signal"] = walk8
+    inputs["w2 zz8 signal"] = walk8
     inputs["v1 zz8 uniform"] = sig.uniform(np.random.default_rng(9), B * N,
                                            np.int8).reshape(B, N)
     # Rows 8-9 and 12 of PERF.md's kernel table: the short chunks that

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: E/D (W2), E4/D4 (W4) and V1E/V1D
 (v1) against their plain PyTorch versions and, through the backend, against
-the port's NumPy oracle; the copy kernel CP and the capability probe's
-kernels against their plain versions. Exact.
+the port's NumPy oracle; E/D's look-back across tiles (tile edges, uniform
+codes, short data rows, views off alignment, repeated calls); the copy
+kernel CP and the capability probe's kernels against their plain versions.
+Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -16,7 +18,8 @@ import torch
 
 from vbz_compression_tpu_torch import oracle, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
-from vbz_compression_tpu_torch.ops import probes, svb_v1, svb_w2, svb_w4
+from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1, svb_w2,
+                                           svb_w4)
 from vbz_compression_tpu_torch.tools import capability_probe
 from vbz_compression_tpu_torch.utils import roofline
 
@@ -71,6 +74,104 @@ def test_kernels_match_plain_on_card(cuda_device, name):
     valid = torch.arange(x.shape[1], device=cuda_device)[None] < n[:, None]
     assert torch.equal(o1, torch.where(valid, x, 0))
     assert _launches(mod) == (before[0] + 1, before[1] + 1)
+
+
+def _w2_check(x, n, flavor):
+    """E and D against their plain versions on x [B, N] with lengths n, bit
+    for bit; returns E's outputs."""
+    k1, d1, l1 = svb_w2.encode_w2_rows(x, n, flavor)
+    k0, d0, l0 = svb_w2.encode_w2_rows_plain(x, n, flavor)
+    assert torch.equal(k1, k0) and torch.equal(l1, l0)
+    written = torch.arange(d0.shape[1], device=x.device)[None] < l0[:, None]
+    assert torch.equal(torch.where(written, d1, 0),
+                       torch.where(written, d0, 0))
+    o1 = svb_w2.decode_w2_rows(k1, d1, n, flavor)
+    assert torch.equal(o1, svb_w2.decode_w2_rows_plain(k1, d1, n, flavor))
+    valid = torch.arange(x.shape[1], device=x.device)[None] < n[:, None]
+    assert torch.equal(o1, torch.where(valid, x, 0))
+    return k1, d1, l1
+
+
+def _w2_tile_case(name: str, flavor: str):
+    """(rows, lens) of signals.w2_tile_cases at the kernels' tile."""
+    cases = signals.w2_tile_cases(_build.lib("w2").vbz_w2_tile())
+    return next(c[2:] for c in cases if c[:2] == (name, flavor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flavor", [
+    ("tile edges", "zz16"), ("tile edges", "zz8"), ("all code 0", "zz16"),
+    ("all code 0", "zz8"), ("all code 1", "zz16"), ("all code 1", "zz8"),
+    ("wrap extremes", "zz16")])
+def test_w2_lookback_cases_match_plain_on_card(cuda_device, name, flavor):
+    """Lengths on tile edges, all-code-0 and all-code-1 content, the int16
+    wrap extremes."""
+    rows, lens = _w2_tile_case(name, flavor)
+    _w2_check(torch.from_numpy(rows).to(cuda_device),
+              torch.from_numpy(lens).to(cuda_device), flavor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["zz16", "zz8"])
+def test_w2_decode_short_data_row_on_card(cuda_device, flavor):
+    """Data rows cut shorter than the keys require, inside and between
+    tiles: D reads nothing at or past D (the next row's bytes would show),
+    and the bytes that are missing read as 0, as in the plain version."""
+    rows, lens = _w2_tile_case("all code 1", flavor)
+    n = torch.from_numpy(lens).to(cuda_device)
+    keys, data, data_len = _w2_check(torch.from_numpy(rows).to(cuda_device),
+                                     n, flavor)
+    for D in (1, 4095, 8193, int(data_len.min()) - 3):
+        short = data[:, :D].contiguous()
+        assert torch.equal(svb_w2.decode_w2_rows(keys, short, n, flavor),
+                           svb_w2.decode_w2_rows_plain(keys, short, n, flavor))
+
+
+def _shifted(t, shift):
+    """A contiguous copy of t that starts ``shift`` elements into its own
+    buffer, so its address sits off the 16-byte alignment."""
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,shift", [
+    ("zz16", 1), ("zz16", 2), ("zz16", 4), ("zz8", 1), ("zz8", 2),
+    ("zz8", 3), ("zz8", 4)])
+def test_w2_views_off_alignment_on_card(cuda_device, flavor, shift):
+    """Inputs that are contiguous views at a storage offset (int16 2, 4 or 8
+    bytes, int8 1-4 bytes past a 16-byte boundary): E reads such rows by
+    narrower words or one value at a time, D its keys and data at the same
+    shift; both equal the plain versions."""
+    rows, lens = _w2_tile_case("tile edges", flavor)
+    n = torch.from_numpy(lens).to(cuda_device)
+    x = _shifted(torch.from_numpy(rows).to(cuda_device), shift)
+    keys, data, _ = _w2_check(x, n, flavor)
+    assert torch.equal(
+        svb_w2.decode_w2_rows(_shifted(keys, shift), _shifted(data, shift), n,
+                              flavor),
+        svb_w2.decode_w2_rows_plain(keys, data, n, flavor))
+
+
+@pytest.mark.cuda
+def test_w2_repeated_calls_give_identical_bytes_on_card(cuda_device):
+    """A look-back race shows as output that changes from call to call: 20
+    calls of E and of D on [4, 4M] give the same bytes, those of the plain
+    versions."""
+    x = torch.from_numpy(signals.TIERS["realistic"](4, 4 << 20)).to(
+        cuda_device)
+    n = torch.full((4,), 4 << 20, dtype=torch.int32, device=cuda_device)
+    keys, data, data_len = _w2_check(x, n, "zz16")
+    written = torch.arange(data.shape[1], device=cuda_device)[None] < \
+        data_len[:, None]
+    for _ in range(20):
+        k, d, l = svb_w2.encode_w2_rows(x, n, "zz16")
+        assert torch.equal(k, keys) and torch.equal(l, data_len)
+        assert torch.equal(torch.where(written, d, 0),
+                           torch.where(written, data, 0))
+        assert torch.equal(svb_w2.decode_w2_rows(keys, data, n, "zz16"), x)
 
 
 @pytest.mark.cuda

@@ -95,13 +95,19 @@ def _dense_inputs(name: str) -> np.ndarray:
         b = _walk(rng, 1024)
         c = np.cumsum(rng.integers(-200, 200, 2048)).astype(np.int16)
         return np.concatenate([a, b, c])
+    if name == "all_one_byte":   # code 0 everywhere, two kernel tiles
+        return np.clip(np.cumsum(np.random.default_rng(5).integers(
+            -60, 61, 8192)), -100, 100).astype(np.int16)
+    if name == "all_two_byte_tiles":   # code 1 everywhere, two kernel tiles
+        return np.tile(np.array([300, -300], np.int16), 4096)
     assert name == "wrap_extremes"
     return np.array([-32768, 32767] * 1024, np.int16)
 
 
 @pytest.mark.parametrize("name,block", [
     ("incompressible", 512), ("all_two_byte", 512), ("signal", 1024),
-    ("mixed_codes", 512), ("multiblock", 512), ("wrap_extremes", 512)])
+    ("mixed_codes", 512), ("multiblock", 512), ("wrap_extremes", 512),
+    ("all_one_byte", 512), ("all_two_byte_tiles", 512)])
 def test_dense_content_matches_pallas_dense(name, block):
     sig = _dense_inputs(name)
     with pltpu.force_tpu_interpret_mode():
@@ -116,15 +122,24 @@ def test_dense_content_matches_pallas_dense(name, block):
 
 
 @pytest.mark.parametrize("name,flavor", [
-    ("signal", "zz16"), ("extremes", "zz16"), ("zz8", "zz8")])
+    ("signal", "zz16"), ("extremes", "zz16"), ("zz8", "zz8"),
+    ("code0", "zz16"), ("code0", "zz8"), ("code1", "zz16"), ("code1", "zz8")])
 def test_small_chunks_match_pallas3(name, flavor):
     """test_pallas3_roundtrip_* and test_pallas3_zz8 inputs: the W2 kernel
-    for chunks under 16384 values."""
+    for chunks under 16384 values; and rows of one code, code 0 (zig-zag
+    values < 256) or code 1 (>= 256; zz8 from its second value on)."""
     rng = np.random.default_rng(1 if flavor == "zz8" else 0)
+    dtype = np.int16 if flavor == "zz16" else np.int8
     if name == "signal":
         sig = _walk(rng, 1024)
     elif name == "extremes":
         sig = np.tile(np.array([-32768, 32767], np.int16), 512)
+    elif name == "code0":
+        sig = np.clip(np.cumsum(rng.integers(-60, 61, 1024)), -100,
+                      100).astype(dtype)
+    elif name == "code1":
+        big = 300 if flavor == "zz16" else -100
+        sig = np.tile(np.array([big, -big], dtype), 512)
     else:
         sig = np.clip(np.cumsum(rng.normal(0, 3, 1024)), -100,
                       100).astype(np.int8)
@@ -141,16 +156,19 @@ def test_small_chunks_match_pallas3(name, flavor):
 
 
 @pytest.mark.parametrize("flavor", ["zz16", "zz8"])
-@pytest.mark.parametrize("lens", [(1, 3, 4095), (4, 5, 0), (4093, 4096, 7)])
+@pytest.mark.parametrize("lens", [(1, 3, 4095), (4, 5, 0), (4093, 4096, 7),
+                                  (1, 4095, 4096), (4097, 12293, 0)])
 def test_ragged_rows_match_oracle(flavor, lens):
     """Rows of unlike lengths in one padded batch, with garbage past each
     length: every row encodes as the oracle does on its own prefix, and the
-    tails take code 0, no data bytes, and decode to 0."""
+    tails take code 0, no data bytes, and decode to 0. The last two length
+    sets sit on the edges of the kernels' 4096-value tiles."""
     rng = np.random.default_rng(17 + sum(lens))
     dtype = np.int16 if flavor == "zz16" else np.int8
     info = np.iinfo(dtype)
-    rows = rng.integers(info.min, info.max + 1, (3, 4096)).astype(dtype)
-    rows[1] = np.cumsum(rng.integers(-3, 4, 4096)).astype(dtype)
+    width = max(4096, -(-max(lens) // 4) * 4)
+    rows = rng.integers(info.min, info.max + 1, (3, width)).astype(dtype)
+    rows[1] = np.cumsum(rng.integers(-3, 4, width)).astype(dtype)
     streams, keys, data, dlen = _encode(rows, lens, flavor)
     for b, n in enumerate(lens):
         assert streams[b] == scalar.svb_compress(rows[b, :n], _SIZE[flavor],

@@ -1,5 +1,11 @@
 // W2 StreamVByte encode (kernel E) and decode (kernel D) for Hopper, sm_90a.
 //
+// Replaces the TPU kernels of the zz16/zz8 flavors: encode
+// vbz_compression_tpu/ops/pallas_codec5.py:930 (encode_w2_rows_flat), :495
+// (encode_w2), pallas_dense.py:311, :365 and pallas_codec3.py:433, :937;
+// decode pallas_codec5.py:1039, :841, pallas_dense.py:522, :587 and
+// pallas_codec3.py:632, :990.
+//
 // W2 is the v0 StreamVByte stage for the zig-zag flavors whose values fit in
 // two bytes: "zz16" (int16, 16-bit wrapped delta) and "zz8" (int8, 32-bit
 // delta, values <= 510). Each value v takes code c = (v > 0xFF): key byte
@@ -12,277 +18,541 @@
 // take code 0, write no data, and decode to 0; decode never reads a byte at
 // or past D.
 //
-// A block owns one tile of kTile values, four consecutive values (one key
-// byte) per thread. The TPU kernels carried the running byte offset, the
-// previous sample and the un-delta sum from one grid step to the next; CUDA
-// blocks run in no order, so each carry is a per-row scan over tiles:
-//   E: tile sizes -> row scan (offsets, data_len) -> write keys and data.
-//      The previous sample is x[i-1], read from global memory.
-//   D: tile sizes from keys -> row scan (offsets) -> read, un-zig-zag and
-//      scan deltas inside each tile -> row scan of tile sums -> add carry.
+// What bounds them: bytes, per int16 value 2 read, 0.25 key bytes and 1-2
+// data bytes written (the reverse for D), and no arithmetic to speak of. So
+// each is one launch in which every byte crosses device memory once. A block
+// owns one tile of kTileW2 values and carries the row's byte offset (and, in
+// D, the un-delta sum) from the tiles before it with the decoupled look-back
+// of lookback.cuh, where the TPU grid carried both in SMEM:
+//   E: 16-byte loads of 16 values per thread (the previous sample from the
+//      neighbouring thread through shared memory), zig-zag two int16 values
+//      at a time (__vsub2), codes and a block scan of byte counts, publish
+//      the tile's bytes, one 32-bit key store per thread, look back for the
+//      offset, build the tile's data bytes in shared memory and store its
+//      span [off, off + bytes) with 16-byte vectors (head and tail bytes one
+//      by one; each data byte belongs to one tile, so no atomics).
+//   D: one 32-bit key load per thread, a block scan of byte counts, look back
+//      for the offset, stage the span (clipped at D) into shared memory with
+//      16-byte vectors, decode and un-zig-zag from there, block scan of the
+//      deltas, look back for the un-delta carry, write the output once with
+//      16-byte stores.
+// Tiles are taken by ticket across the rows first, so a batch's rows carry
+// side by side. On the H100 the kernels stay well short of the byte bound:
+// a tile's life is a chain of dependent steps (ticket, loads, scan,
+// look-back, store), so loads are in flight only for part of it (PERF.md).
+// Tile size: 256 threads x 16 values. 16 values are 4 key bytes (one 32-bit
+// word) and 32 output bytes (two 16-byte vectors) per thread; a tile's
+// staged data is at most 8 KB of shared memory, so eight blocks share an SM
+// (the thread limit), and its look-back (one warp reading 32 status words
+// per step) is paid once per 8 KB of int16 output. [64, 8192] is 128 tiles,
+// about one per SM. Tiles of 8192 and 16384 values, or fewer blocks per SM,
+// measured no faster.
+//
 // Entry points launch on the given stream, allocate nothing (the caller
-// passes the [B, T] u32 scratch) and return cudaGetLastError().
+// passes the zeroed look-back scratch) and return cudaGetLastError().
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
 #include "row_scan.cuh"
 
 namespace {
 
 using namespace vbz;
 
-// Zig-zag delta of value i of a row (x[-1] = 0).
+constexpr int kPerThread = 16;  // values per thread: 4 key bytes
+// Blocks an SM holds at once: 8 x 256 threads caps registers at 32.
+constexpr int kMinBlocks = 8;
+constexpr int kTileW2 = kThreads * kPerThread;
+// Staged data: at most 2 bytes per value, after up to 15 bytes that align
+// the shared buffer with the span's address mod 16.
+constexpr int kStageBytes = 2 * kTileW2 + 16;
+
+// A thread's values live packed in 32-bit words: kLanes values of X each.
 template <typename X>
-__device__ __forceinline__ uint32_t zz_value(const X* row, int i) {
-  const int cur = row[i];
-  const int prev = i > 0 ? static_cast<int>(row[i - 1]) : 0;
-  if constexpr (sizeof(X) == 2) {
-    const uint32_t d = static_cast<uint32_t>(cur - prev) & 0xFFFFu;
-    return ((d << 1) & 0xFFFFu) ^ ((d >> 15) ? 0xFFFFu : 0u);
-  } else {
-    const int d = cur - prev;
-    return (static_cast<uint32_t>(d) << 1) ^ static_cast<uint32_t>(d >> 31);
-  }
-}
-
-// Values i0..i0+3 of a row: zig-zag values, codes, and their data bytes.
+constexpr int kLanes = 4 / static_cast<int>(sizeof(X));
 template <typename X>
-__device__ __forceinline__ uint32_t encode_quad(const X* row, int i0, int len,
-                                                uint32_t v[4], uint32_t c[4]) {
-  uint32_t bytes = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[k] = 0;
-    c[k] = 0;
-    if (i0 + k < len) {
-      v[k] = zz_value(row, i0 + k);
-      c[k] = v[k] > 0xFFu;
-      bytes += 1 + c[k];
-    }
-  }
-  return bytes;
-}
+constexpr int kWords = kPerThread / kLanes<X>;
 
+// Value k of a thread's packed words, sign-extended.
 template <typename X>
-__global__ void encode_sizes(const X* x, const int* lens, uint32_t* tile_bytes,
-                             int N, int T) {
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int len = clamp_len(lens[b], N);
-  uint32_t* out = tile_bytes + static_cast<size_t>(b) * T + blockIdx.x;
-  if (base >= len) {
-    if (threadIdx.x == 0) *out = 0;
-    return;
-  }
-  uint32_t v[4], c[4];
-  const uint32_t bytes = encode_quad(x + static_cast<size_t>(b) * N,
-                                     base + 4 * threadIdx.x, len, v, c);
-  uint32_t total;
-  block_exclusive_scan<kThreads>(bytes, &total, smem);
-  if (threadIdx.x == 0) *out = total;
-}
-
-template <typename X>
-__global__ void encode_write(const X* x, const int* lens,
-                             const uint32_t* tile_off, uint8_t* keys,
-                             uint8_t* data, int N, int T) {
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int len = clamp_len(lens[b], N);
-  const int i0 = base + 4 * threadIdx.x;
-  uint8_t* krow = keys + static_cast<size_t>(b) * (N / 4);
-  if (base >= len) {
-    if (i0 < N) krow[i0 / 4] = 0;
-    return;
-  }
-  uint32_t v[4], c[4];
-  const uint32_t bytes =
-      encode_quad(x + static_cast<size_t>(b) * N, i0, len, v, c);
-  if (i0 < N) {
-    krow[i0 / 4] = static_cast<uint8_t>(c[0] | (c[1] << 2) | (c[2] << 4) |
-                                        (c[3] << 6));
-  }
-  uint32_t total;
-  uint32_t o = tile_off[static_cast<size_t>(b) * T + blockIdx.x] +
-               block_exclusive_scan<kThreads>(bytes, &total, smem);
-  uint8_t* drow = data + static_cast<size_t>(b) * 2 * N;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (i0 + k < len) {
-      drow[o++] = static_cast<uint8_t>(v[k]);
-      if (c[k]) drow[o++] = static_cast<uint8_t>(v[k] >> 8);
-    }
-  }
-}
-
-// Data bytes of values i0..i0+3 (i < count): 1 + (code != 0) each.
-__device__ __forceinline__ uint32_t decode_quad_lens(uint32_t key, int i0,
-                                                     int count, uint32_t n[4]) {
-  uint32_t bytes = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    n[k] = i0 + k < count ? 1u + (((key >> (2 * k)) & 3u) != 0u) : 0u;
-    bytes += n[k];
-  }
-  return bytes;
-}
-
-__global__ void decode_sizes(const uint8_t* keys, const int* counts,
-                             uint32_t* tile_bytes, int N, int T) {
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int count = clamp_len(counts[b], N);
-  uint32_t* out = tile_bytes + static_cast<size_t>(b) * T + blockIdx.x;
-  if (base >= count) {
-    if (threadIdx.x == 0) *out = 0;
-    return;
-  }
-  const int i0 = base + 4 * threadIdx.x;
-  const uint32_t key =
-      i0 < count ? keys[static_cast<size_t>(b) * (N / 4) + i0 / 4] : 0u;
-  uint32_t n[4];
-  const uint32_t bytes = decode_quad_lens(key, i0, count, n);
-  uint32_t total;
-  block_exclusive_scan<kThreads>(bytes, &total, smem);
-  if (threadIdx.x == 0) *out = total;
-}
-
-// Decodes one tile: each value's bytes at the scanned offsets, un-zig-zag,
-// then the inclusive delta sum inside the tile. Writes that partial sum to
-// out and the tile's delta total to tile_sum; finish_undelta adds the sum
-// of the row's earlier tiles.
-template <typename X>
-__global__ void decode_tiles(const uint8_t* keys, const uint8_t* data,
-                             const int* counts, const uint32_t* tile_off,
-                             X* out, uint32_t* tile_sum, int N, int T, int D) {
+__device__ __forceinline__ int lane_value(const uint32_t* w, int k) {
   using U = std::make_unsigned_t<X>;
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int count = clamp_len(counts[b], N);
-  const int i0 = base + 4 * threadIdx.x;
-  const size_t tile = static_cast<size_t>(b) * T + blockIdx.x;
-  X* orow = out + static_cast<size_t>(b) * N;
-  if (base >= count) {
+  return static_cast<X>(
+      static_cast<U>(w[k / kLanes<X>] >> (8 * sizeof(X) * (k % kLanes<X>))));
+}
+
+// Values i0..i0+15 of a row of N as packed words (0 past N). kAligned: the
+// tensor starts on a word of 4 values (8 bytes of int16, 4 of int8), and so
+// does every row, since N % 4 == 0; whole runs of 16 then move as 16-byte
+// vectors where the address allows, else as such words. Otherwise (a view
+// at an odd storage offset), and at a row's end, one value at a time. The
+// launch picks kAligned from the tensor's address, so the common case pays
+// no check for the rare one.
+template <typename X, bool kAligned>
+__device__ __forceinline__ void load_words(const X* row, int i0, int N,
+                                           uint32_t w[kWords<X>]) {
+  const X* p = row + i0;
+  if (!kAligned || i0 + kPerThread > N) {
+    using U = std::make_unsigned_t<X>;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (i0 + k < N) orow[i0 + k] = 0;
+    for (int q = 0; q < kWords<X>; ++q) w[q] = 0;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (i0 + k < N) {
+        w[k / kLanes<X>] |= static_cast<uint32_t>(static_cast<U>(p[k]))
+                            << (8 * sizeof(X) * (k % kLanes<X>));
+      }
     }
-    if (threadIdx.x == 0) tile_sum[tile] = 0;
+  } else if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kWords<X> / 4; ++q) {
+      const uint4 a = reinterpret_cast<const uint4*>(p)[q];
+      w[4 * q] = a.x;
+      w[4 * q + 1] = a.y;
+      w[4 * q + 2] = a.z;
+      w[4 * q + 3] = a.w;
+    }
+  } else if constexpr (sizeof(X) == 2) {
+#pragma unroll
+    for (int q = 0; q < kWords<X> / 2; ++q) {
+      const uint2 a = reinterpret_cast<const uint2*>(p)[q];
+      w[2 * q] = a.x;
+      w[2 * q + 1] = a.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWords<X>; ++q) {
+      w[q] = reinterpret_cast<const uint32_t*>(p)[q];
+    }
+  }
+}
+
+// Stores packed words as values i0..i0+15 of a row of N (none past N), with
+// the accesses of load_words.
+template <typename X, bool kAligned>
+__device__ __forceinline__ void store_words(X* row, int i0, int N,
+                                            const uint32_t w[kWords<X>]) {
+  X* p = row + i0;
+  if (!kAligned || i0 + kPerThread > N) {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (i0 + k < N) p[k] = static_cast<X>(lane_value<X>(w, k));
+    }
+  } else if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kWords<X> / 4; ++q) {
+      reinterpret_cast<uint4*>(p)[q] =
+          make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+    }
+  } else if constexpr (sizeof(X) == 2) {
+#pragma unroll
+    for (int q = 0; q < kWords<X> / 2; ++q) {
+      reinterpret_cast<uint2*>(p)[q] = make_uint2(w[2 * q], w[2 * q + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWords<X>; ++q) {
+      reinterpret_cast<uint32_t*>(p)[q] = w[q];
+    }
+  }
+}
+
+// Whether a tensor of X starts on a word of 4 values (kAligned above).
+template <typename X>
+bool word_aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(X)) == 0;
+}
+
+// The 4 key bytes of values i0..i0+15 of a row of N (0 past N): one 32-bit
+// access where the key row allows (N % 16 == 0), else byte by byte.
+__device__ __forceinline__ uint32_t load_keys(const uint8_t* krow, int i0,
+                                              int N) {
+  const uint8_t* p = krow + i0 / 4;
+  if (i0 + kPerThread <= N && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  uint32_t key = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (i0 + 4 * j < N) key |= static_cast<uint32_t>(p[j]) << (8 * j);
+  }
+  return key;
+}
+
+__device__ __forceinline__ void store_keys(uint8_t* krow, int i0, int N,
+                                           uint32_t key) {
+  uint8_t* p = krow + i0 / 4;
+  if (i0 + kPerThread <= N && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(p) = key;
     return;
   }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (i0 + 4 * j < N) p[j] = static_cast<uint8_t>(key >> (8 * j));
+  }
+}
+
+// Moves the byte span [lo, hi) of device memory to (kToShared) or from the
+// staging buffer, which holds it from stage + lo % 16: both sides agree mod
+// 16, so every whole 16-byte word of the span moves as one vector. The bytes
+// before the first whole word move one per thread on threads 0-31, those
+// after the last on threads 32-47. Nothing outside [lo, hi) is touched.
+template <bool kToShared>
+__device__ __forceinline__ void move_span(uint8_t* stage, uintptr_t lo,
+                                          uintptr_t hi) {
+  const uintptr_t base = lo & ~uintptr_t{15};
+  uintptr_t va = (lo + 15) & ~uintptr_t{15};
+  uintptr_t vb = hi & ~uintptr_t{15};
+  if (va >= vb) va = vb = hi;  // no whole word: the head takes all (< 32)
+  for (uintptr_t a = va + 16 * threadIdx.x; a < vb; a += 16 * blockDim.x) {
+    uint4* g = reinterpret_cast<uint4*>(a);
+    uint4* s = reinterpret_cast<uint4*>(stage + (a - base));
+    if constexpr (kToShared) {
+      *s = *g;
+    } else {
+      *g = *s;
+    }
+  }
+  const uintptr_t a = threadIdx.x < 32 ? lo + threadIdx.x
+                                       : vb + (threadIdx.x - 32);
+  const uintptr_t end = threadIdx.x < 32 ? va : hi;
+  if (threadIdx.x < 48 && a < end) {
+    uint8_t* g = reinterpret_cast<uint8_t*>(a);
+    uint8_t* s = stage + (a - base);
+    if constexpr (kToShared) {
+      *s = *g;
+    } else {
+      *g = *s;
+    }
+  }
+}
+
+// How many of a thread's values lie before the row's length, and the mask
+// of their 2-bit key fields.
+__device__ __forceinline__ int live_values(int len, int i0) {
+  const int n = len - i0;
+  return n < 0 ? 0 : (n > kPerThread ? kPerThread : n);
+}
+
+__device__ __forceinline__ uint32_t live_key_mask(int live) {
+  return live >= kPerThread ? ~0u : (1u << (2 * live)) - 1u;
+}
+
+// The zig-zag values of a thread's 16 values, two 16-bit halves per word
+// (value 2q in the low half of zz[q]); prev is the value before the first.
+// int16 takes the 16-bit wrapped delta two values at a time; int8 the 32-bit
+// delta, whose zig-zag is at most 510.
+template <typename X>
+__device__ __forceinline__ void zigzag_pairs(const uint32_t w[kWords<X>],
+                                             int prev, uint32_t zz[8]) {
+  if constexpr (sizeof(X) == 2) {
+    uint32_t before = static_cast<uint32_t>(prev) << 16;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const uint32_t d = __vsub2(w[q], __byte_perm(before, w[q], 0x5432));
+      zz[q] = ((d << 1) & 0xFFFEFFFEu) ^ __vcmplts2(d, 0u);
+      before = w[q];
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      uint32_t pair = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int cur = lane_value<X>(w, 2 * q + h);
+        const int d = cur - prev;
+        pair |= ((static_cast<uint32_t>(d) << 1) ^
+                 static_cast<uint32_t>(d >> 31)) << (16 * h);
+        prev = cur;
+      }
+      zz[q] = pair;
+    }
+  }
+}
+
+// Row b and tile t of a ticket: tickets run across the rows first (ticket
+// t * B + b), so the rows' look-back chains advance side by side, and every
+// tile a look-back waits on (same row, lower t) holds a lower ticket.
+__device__ __forceinline__ void tile_of_ticket(uint32_t ticket, int T, int* b,
+                                               int* t) {
+  const uint32_t B = gridDim.x / T;
+  *t = static_cast<int>(ticket / B);
+  *b = static_cast<int>(ticket - static_cast<uint32_t>(*t) * B);
+}
+
+template <typename X, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    encode_w2(const X* x, const int* lens, uint8_t* keys, uint8_t* data,
+              int* data_len, StatusWord* scratch, int N, int T) {
+  __shared__ uint32_t scan[kThreads / 32];
+  __shared__ int last[kThreads];
+  __shared__ uint32_t tile_off;
+  __shared__ __align__(16) uint8_t stage[kStageBytes];
+  int b, t;
+  tile_of_ticket(take_ticket(scratch), T, &b, &t);
+  const int base = t * kTileW2;
+  const int len = clamp_len(lens[b], N);
+  const int i0 = base + kPerThread * threadIdx.x;
+  uint8_t* krow = keys + static_cast<size_t>(b) * (N / 4);
+  StatusWord* status = scratch + kLookbackHeader + static_cast<size_t>(b) * T;
+  if (base >= len) {  // past the row's length: zero keys, no data
+    store_keys(krow, i0, N, 0u);
+    if (threadIdx.x == 0) {
+      publish_status(status + t, kStatusAggregate, 0u);
+      if (t == 0) data_len[b] = 0;
+    }
+    return;
+  }
+  const X* row = x + static_cast<size_t>(b) * N;
+  uint32_t w[kWords<X>];
+  load_words<X, kAligned>(row, i0, N, w);
+  last[threadIdx.x] = lane_value<X>(w, kPerThread - 1);
+  __syncthreads();
+  uint32_t zz[8];
+  zigzag_pairs<X>(w, threadIdx.x > 0 ? last[threadIdx.x - 1]
+                     : (base > 0 ? static_cast<int>(row[base - 1]) : 0),
+                  zz);
+  // Codes: bit 2k of key is value k's code (zig-zag > 0xFF).
+  uint32_t key = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t big = __vcmpgtu2(zz[q], 0x00FF00FFu) & 0x00010001u;
+    key |= ((big | (big >> 14)) & 5u) << (4 * q);
+  }
+  const int live = live_values(len, i0);
+  key &= live_key_mask(live);
+  uint32_t agg;
+  const uint32_t in_tile = block_exclusive_scan<kThreads>(
+      static_cast<uint32_t>(live) + __popc(key), &agg, scan);
+  if (threadIdx.x == 0) publish_aggregate(status, t, agg);
+  store_keys(krow, i0, N, key);
+  if (threadIdx.x < 32) {
+    const uint32_t off = resolve_prefix(status, t, agg);
+    if (threadIdx.x == 0) tile_off = off;
+  }
+  __syncthreads();
+  const uint32_t off = tile_off;
+  const uintptr_t lo =
+      reinterpret_cast<uintptr_t>(data + static_cast<size_t>(b) * 2 * N + off);
+  uint8_t* o = stage + (lo & 15) + in_tile;
+  if (live == kPerThread) {
+    // Each value's high byte is written whatever its code: a 1-byte value's
+    // is overwritten by the next value. Only the last value's depends on it.
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t v = zz[k / 2] >> (16 * (k % 2));
+      const uint32_t c = (key >> (2 * k)) & 1u;
+      o[0] = static_cast<uint8_t>(v);
+      if (k + 1 < kPerThread || c) o[1] = static_cast<uint8_t>(v >> 8);
+      o += 1 + c;
+    }
+  } else {
+    for (int k = 0; k < live; ++k) {
+      const uint32_t v = zz[k / 2] >> (16 * (k % 2));
+      const uint32_t c = (key >> (2 * k)) & 1u;
+      o[0] = static_cast<uint8_t>(v);
+      if (c) o[1] = static_cast<uint8_t>(v >> 8);
+      o += 1 + c;
+    }
+  }
+  __syncthreads();
+  move_span<false>(stage, lo, lo + agg);
+  if (threadIdx.x == 0 && t == (len - 1) / kTileW2) {
+    data_len[b] = static_cast<int>(off + agg);
+  }
+}
+
+// Places the low bits of a running sum as value k of a thread's packed words.
+template <typename X>
+__device__ __forceinline__ void put_lane(uint32_t w[kWords<X>], int k,
+                                         uint32_t sum) {
+  constexpr uint32_t kMask = (1u << (8 * sizeof(X))) - 1u;
+  const int shift = 8 * sizeof(X) * (k % kLanes<X>);
+  if (k % kLanes<X> == 0) w[k / kLanes<X>] = 0;
+  w[k / kLanes<X>] |= (sum & kMask) << shift;
+}
+
+// Adds c to every lane of a packed word, each lane mod its width.
+template <typename X>
+__device__ __forceinline__ uint32_t add_lanes(uint32_t w, uint32_t c) {
+  if constexpr (sizeof(X) == 2) {
+    return __vadd2(w, (c & 0xFFFFu) * 0x00010001u);
+  } else {
+    return __vadd4(w, (c & 0xFFu) * 0x01010101u);
+  }
+}
+
+template <typename X, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    decode_w2(const uint8_t* keys, const uint8_t* data, const int* counts,
+              X* out, StatusWord* scratch, int N, int T, int D) {
+  __shared__ uint32_t scan[kThreads / 32];
+  __shared__ uint32_t tile_off, tile_carry;
+  __shared__ __align__(16) uint8_t stage[kStageBytes];
+  int b, t;
+  tile_of_ticket(take_ticket(scratch), T, &b, &t);
+  const int base = t * kTileW2;
+  const int count = clamp_len(counts[b], N);
+  const int i0 = base + kPerThread * threadIdx.x;
+  // Two status arrays of B * T (= gridDim.x) words: offsets, then sums.
+  StatusWord* offsets = scratch + kLookbackHeader + static_cast<size_t>(b) * T;
+  StatusWord* sums = offsets + gridDim.x;
+  X* orow = out + static_cast<size_t>(b) * N;
+  uint32_t w[kWords<X>] = {};
+  if (base >= count) {  // past the row's count: zeros
+    store_words<X, kAligned>(orow, i0, N, w);
+    if (threadIdx.x == 0) {
+      publish_status(offsets + t, kStatusAggregate, 0u);
+      publish_status(sums + t, kStatusAggregate, 0u);
+    }
+    return;
+  }
+  // Bit 2k of two: value k is live and takes 2 bytes (any nonzero code).
   const uint32_t key =
-      i0 < count ? keys[static_cast<size_t>(b) * (N / 4) + i0 / 4] : 0u;
-  uint32_t n[4];
-  const uint32_t bytes = decode_quad_lens(key, i0, count, n);
-  uint32_t total;
-  uint32_t o = tile_off[tile] + block_exclusive_scan<kThreads>(bytes, &total, smem);
-  const uint8_t* drow = data + static_cast<size_t>(b) * D;
+      load_keys(keys + static_cast<size_t>(b) * (N / 4), i0, N);
+  const int live = live_values(count, i0);
+  const uint32_t two = (key | (key >> 1)) & 0x55555555u & live_key_mask(live);
+  uint32_t agg;
+  const uint32_t in_tile = block_exclusive_scan<kThreads>(
+      static_cast<uint32_t>(live) + __popc(two), &agg, scan);
+  if (threadIdx.x == 0) publish_aggregate(offsets, t, agg);
+  if (threadIdx.x < 32) {
+    const uint32_t off = resolve_prefix(offsets, t, agg);
+    if (threadIdx.x == 0) tile_off = off;
+  }
+  __syncthreads();
+  // The tile's span of the data row, clipped at D: in-tile byte o exists
+  // when o < avail.
+  const uint32_t off = tile_off;
   const uint32_t limit = static_cast<uint32_t>(D);
-  uint32_t prefix[4];
-  uint32_t sum = 0;
+  const uint32_t first = off < limit ? off : limit;
+  const uint32_t end = off + agg < limit ? off + agg : limit;
+  const uint32_t avail = end - first;
+  const uint8_t* drow = data + static_cast<size_t>(b) * D;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(drow + first);
+  move_span<true>(stage, lo, reinterpret_cast<uintptr_t>(drow + end));
+  __syncthreads();
+  // Decode, un-zig-zag and sum the thread's values; keep each running sum's
+  // low bits packed in w.
+  const uint8_t* s = stage + (lo & 15);
+  uint32_t o = in_tile, sum = 0;
+  if (live == kPerThread && avail == agg) {
+    // Every byte is there: read two and keep one for a 1-byte value (the
+    // second may be the next value's, or past the span inside the buffer).
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t v = 0;
-    if (n[k] != 0) {
-      if (o < limit) v = drow[o];
-      if (n[k] == 2 && o + 1 < limit) v |= static_cast<uint32_t>(drow[o + 1]) << 8;
-      o += n[k];
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t c = (two >> (2 * k)) & 1u;
+      const uint32_t z = (s[o] | (static_cast<uint32_t>(s[o + 1]) << 8)) &
+                         (0xFFu | (0xFF00u * c));
+      o += 1 + c;
+      sum += (z >> 1) ^ (0u - (z & 1u));
+      put_lane<X>(w, k, sum);
     }
-    sum += (v >> 1) ^ (0u - (v & 1u));  // un-zig-zag; 0 for a missing value
-    prefix[k] = sum;
-  }
-  const uint32_t before = block_exclusive_scan<kThreads>(sum, &total, smem);
+  } else {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (i0 + k < N) {
-      orow[i0 + k] = i0 + k < count
-                         ? static_cast<X>(static_cast<U>(before + prefix[k]))
-                         : X(0);
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t n = k < live ? 1u + ((two >> (2 * k)) & 1u) : 0u;
+      uint32_t z = 0;
+      if (n != 0) {
+        if (o < avail) z = s[o];
+        if (n == 2 && o + 1 < avail) z |= static_cast<uint32_t>(s[o + 1]) << 8;
+        o += n;
+      }
+      sum += (z >> 1) ^ (0u - (z & 1u));  // 0 for a missing value
+      put_lane<X>(w, k, sum);
     }
   }
-  if (threadIdx.x == 0) tile_sum[tile] = total;
+  uint32_t total;
+  const uint32_t before = block_exclusive_scan<kThreads>(sum, &total, scan);
+  if (threadIdx.x == 0) publish_aggregate(sums, t, total);
+  if (threadIdx.x < 32) {
+    const uint32_t carry = resolve_prefix(sums, t, total);
+    if (threadIdx.x == 0) tile_carry = carry;
+  }
+  __syncthreads();
+  const uint32_t add = tile_carry + before;
+#pragma unroll
+  for (int q = 0; q < kWords<X>; ++q) w[q] = add_lanes<X>(w[q], add);
+  if (live < kPerThread) {  // the row's last live values: zeros after
+    constexpr uint32_t kMask = (1u << (8 * sizeof(X))) - 1u;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (k >= live) {
+        w[k / kLanes<X>] &= ~(kMask << (8 * sizeof(X) * (k % kLanes<X>)));
+      }
+    }
+  }
+  store_words<X, kAligned>(orow, i0, N, w);
+}
+
+// Tiles of a [B, N] batch, or 0 when they do not fit one grid.
+int grid_tiles(int B, int N) {
+  const long long tiles =
+      static_cast<long long>(B) * ((N + kTileW2 - 1) / kTileW2);
+  return tiles > INT_MAX ? 0 : static_cast<int>(tiles);
 }
 
 template <typename X>
 int encode_launch(const void* x, const int* lens, uint8_t* keys,
-                  uint8_t* data, int* data_len, uint32_t* tile_bytes,
-                  uint32_t* tile_off, int B, int N, cudaStream_t s) {
-  const int T = (N + kTile - 1) / kTile;
-  const dim3 grid(T, B);
-  const X* xt = static_cast<const X*>(x);
-  encode_sizes<X><<<grid, kThreads, 0, s>>>(xt, lens, tile_bytes, N, T);
-  int err = cudaGetLastError();
-  if (err != 0) return err;
-  row_exclusive_scan<<<B, kScanThreads, 0, s>>>(
-      tile_bytes, tile_off, reinterpret_cast<uint32_t*>(data_len), T);
-  err = cudaGetLastError();
-  if (err != 0) return err;
-  encode_write<X><<<grid, kThreads, 0, s>>>(xt, lens, tile_off, keys, data, N, T);
+                  uint8_t* data, int* data_len, StatusWord* scratch, int B,
+                  int N, cudaStream_t s) {
+  const int tiles = grid_tiles(B, N);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = word_aligned<X>(x) ? encode_w2<X, true>
+                                         : encode_w2<X, false>;
+  kernel<<<tiles, kThreads, 0, s>>>(static_cast<const X*>(x), lens, keys,
+                                    data, data_len, scratch, N, tiles / B);
   return cudaGetLastError();
 }
 
 template <typename X>
 int decode_launch(const uint8_t* keys, const uint8_t* data, const int* counts,
-                  void* out, uint32_t* scratch, int B, int N, int D,
+                  void* out, StatusWord* scratch, int B, int N, int D,
                   cudaStream_t s) {
-  const int T = (N + kTile - 1) / kTile;
-  const dim3 grid(T, B);
-  const size_t bt = static_cast<size_t>(B) * T;
-  uint32_t* tile_bytes = scratch;
-  uint32_t* tile_off = scratch + bt;
-  uint32_t* tile_sum = scratch + 2 * bt;
-  uint32_t* tile_carry = scratch + 3 * bt;
-  X* o = static_cast<X*>(out);
-  decode_sizes<<<grid, kThreads, 0, s>>>(keys, counts, tile_bytes, N, T);
-  int err = cudaGetLastError();
-  if (err != 0) return err;
-  row_exclusive_scan<<<B, kScanThreads, 0, s>>>(tile_bytes, tile_off, nullptr, T);
-  err = cudaGetLastError();
-  if (err != 0) return err;
-  decode_tiles<X><<<grid, kThreads, 0, s>>>(keys, data, counts, tile_off, o,
-                                            tile_sum, N, T, D);
-  err = cudaGetLastError();
-  if (err != 0) return err;
-  return finish_undelta<X>(o, counts, tile_sum, tile_carry, B, N, T, s);
+  const int tiles = grid_tiles(B, N);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = word_aligned<X>(out) ? decode_w2<X, true>
+                                           : decode_w2<X, false>;
+  kernel<<<tiles, kThreads, 0, s>>>(keys, data, counts, static_cast<X*>(out),
+                                    scratch, N, tiles / B, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Values per tile: the scratch of both entry points is [B, ceil(N / tile)].
-int vbz_w2_tile() { return kTile; }
+// Values per tile, T = ceil(N / tile) tiles per row. The scratch of both
+// entry points is 8-byte words, zeroed before each call: 1 + B * T for
+// encode, 1 + 2 * B * T for decode.
+int vbz_w2_tile() { return kTileW2; }
 
 // x: [B, N] int16 (elem_bytes 2, zz16) or int8 (elem_bytes 1, zz8);
 // lens: [B] i32. Writes keys [B, N/4], data [B, 2N], data_len [B] i32.
-// scratch: 2 * B * T u32.
 int vbz_w2_encode(const void* x, const int* lens, uint8_t* keys,
-                  uint8_t* data, int* data_len, uint32_t* scratch, int B,
+                  uint8_t* data, int* data_len, StatusWord* scratch, int B,
                   int N, int elem_bytes, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t bt = static_cast<size_t>(B) * ((N + kTile - 1) / kTile);
   if (elem_bytes == 2) {
-    return encode_launch<int16_t>(x, lens, keys, data, data_len, scratch,
-                                  scratch + bt, B, N, s);
+    return encode_launch<int16_t>(x, lens, keys, data, data_len, scratch, B,
+                                  N, s);
   }
   if (elem_bytes == 1) {
-    return encode_launch<int8_t>(x, lens, keys, data, data_len, scratch,
-                                 scratch + bt, B, N, s);
+    return encode_launch<int8_t>(x, lens, keys, data, data_len, scratch, B,
+                                 N, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // keys: [B, N/4] u8, data: [B, D] u8, counts: [B] i32. Writes out [B, N]
-// int16 (elem_bytes 2) or int8 (elem_bytes 1). scratch: 4 * B * T u32.
+// int16 (elem_bytes 2) or int8 (elem_bytes 1).
 int vbz_w2_decode(const uint8_t* keys, const uint8_t* data, const int* counts,
-                  void* out, uint32_t* scratch, int B, int N, int D,
+                  void* out, StatusWord* scratch, int B, int N, int D,
                   int elem_bytes, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 2) {

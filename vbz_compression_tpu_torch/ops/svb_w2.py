@@ -11,12 +11,22 @@ encode kernel (E) and one decode kernel (D), ``csrc/w2_codec.cu``, cover
 every content regime and every row length.
 
 What bounds them is bytes: 2 read per int16 value, and 0.25 key bytes plus
-1-2 data bytes written (about 1.25-2.25 per value; zz8 reads 1). There is
-no arithmetic to speak of. The design keeps each pass a single streaming
-sweep over its tile (four values, one key byte, per thread), turns the TPU's
-sequential grid carries into per-row scans over tile totals, and skips the
-tiles past a row's length, so a padded batch costs little beyond its real
-values.
+1-2 data bytes written (about 1.25-2.25 per value; zz8 reads 1), or the
+reverse for decode. There is no arithmetic to speak of. So each is one
+launch in which every byte crosses device memory once: a block owns a tile
+of 4096 values (16 per thread: one 32-bit key word and two 16-byte vectors
+of int16), takes it from an atomic ticket, and gets the row's byte offset
+(and, in decode, the un-delta sum) of the tiles before it by a decoupled
+look-back over per-tile status words (``csrc/lookback.cuh``), where the TPU
+kernels carried both from one grid step to the next in SMEM. The tile's data
+span is staged in shared memory and moves as 16-byte vectors, and tiles past
+a row's length do no work beyond zero keys or zero output. The tile size
+gives each thread whole words of keys and output, keeps the staged span
+under 8 KB so that eight blocks share an SM, and pays one look-back per 8 KB
+of int16. The wrapper zeroes the look-back state (one fill) before each
+launch. On the H100 the kernels reach a fraction of the byte bound: each
+tile's steps depend on one another, so its loads are in flight for only part
+of its life (``PERF.md``).
 
 Layouts (B rows, N values per row, N % 4 == 0):
     encode_w2_rows(x [B,N] i16|i8, lens [B] i32)
@@ -40,11 +50,21 @@ from . import _rows
 
 FLAVOR_DTYPES = {"zz16": torch.int16, "zz8": torch.int8}
 
-# Kernel-sequence launches, one per wrapper call that reached the card.
+# Kernel launches, one per wrapper call that reached the card.
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 
 _MAX_N = 1 << 29   # keeps every in-row byte offset (< 2N) in an int32
+
+
+def _lookback_scratch(lib, B: int, N: int, carries: int,
+                      device: torch.device) -> torch.Tensor:
+    """The kernels' zeroed look-back state: the ticket word, then one status
+    word per tile (``vbz_w2_tile()`` values) for each carried value: the byte
+    offset, and in decode the un-delta sum. The one fill that comes with a
+    launch."""
+    tiles = B * -(-N // lib.vbz_w2_tile())
+    return torch.zeros(1 + carries * tiles, dtype=torch.int64, device=device)
 
 
 def _dtype(flavor: str) -> torch.dtype:
@@ -91,14 +111,13 @@ def encode_w2_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
     _rows.check_kernel_args(B, N, _MAX_N, x, lens)
     keys = torch.empty(B, N // 4, dtype=torch.uint8, device=x.device)
     data = torch.empty(B, 2 * N, dtype=torch.uint8, device=x.device)
-    data_len = torch.zeros(B, dtype=torch.int32, device=x.device)
     if B == 0 or N == 0:
-        return keys, data, data_len
+        return keys, data, torch.zeros(B, dtype=torch.int32, device=x.device)
+    data_len = torch.empty(B, dtype=torch.int32, device=x.device)
     from . import _build
 
     lib = _build.lib("w2")
-    tiles = -(-N // lib.vbz_w2_tile())
-    scratch = torch.empty(2, B, tiles, dtype=torch.int32, device=x.device)
+    scratch = _lookback_scratch(lib, B, N, 1, x.device)
     _rows.launch(lib.vbz_w2_encode, "W2 encode", x, lens, keys, data,
                  data_len, scratch, B, N, x.element_size())
     global ENCODE_LAUNCHES
@@ -152,8 +171,7 @@ def decode_w2_rows(keys: torch.Tensor, data: torch.Tensor,
     from . import _build
 
     lib = _build.lib("w2")
-    tiles = -(-N // lib.vbz_w2_tile())
-    scratch = torch.empty(4, B, tiles, dtype=torch.int32, device=keys.device)
+    scratch = _lookback_scratch(lib, B, N, 2, keys.device)
     _rows.launch(lib.vbz_w2_decode, "W2 decode", keys, data, counts, out,
                  scratch, B, N, D, out.element_size())
     global DECODE_LAUNCHES

@@ -1,9 +1,9 @@
 """Test signals for the port's smoke run, bench and profiles, made with
 numpy from a seed: the ``bench.py`` tiers as B rows of N int16 (its
 ``clean`` and ``mixed`` tiers byte for byte, through :func:`gen_signal`),
-a corpus of reads of log-uniform length, and content for the other flavors
+a corpus of reads of log-uniform length, content for the other flavors
 (int32, int8 and unsigned signals, uniform noise, the v1 odd-nibble
-pattern)."""
+pattern), and the inputs that carry W2's look-back across tile edges."""
 
 from __future__ import annotations
 
@@ -227,6 +227,37 @@ def uniform(rng, n: int, dtype) -> np.ndarray:
     info = np.iinfo(dtype)
     return rng.integers(info.min, info.max, n, dtype=np.int64,
                         endpoint=True).astype(dtype)
+
+
+def w2_tile_cases(tile: int) -> list:
+    """(name, flavor, rows [B, N], lens [B]) that carry W2's byte offset and
+    un-delta sum across tiles of ``tile`` values: unlike rows whose lengths
+    sit on tile edges (N = 1,000,004, so every row after the first starts
+    off 16-byte alignment), all-code-0 and all-code-1 content (zig-zag values
+    >= 256 everywhere; zz8 after the first value, which cannot reach 256),
+    and the int16 wrap extremes."""
+    rng = np.random.default_rng(41)
+    lens = np.array([1, tile - 1, tile, tile + 1, 3 * tile + 5, 1_000_003],
+                    np.int32)
+    width = -(-int(lens.max()) // 4) * 4
+    n = 3 * tile + 8
+    full = np.full(3, n, np.int32)
+    swing = np.arange(3)[:, None]
+    cases = []
+    for flavor, dtype, big in (("zz16", np.int16, 300),
+                               ("zz8", np.int8, -100)):
+        walk = np.cumsum(rng.integers(-300, 301, (lens.size, width)), axis=1)
+        cases.append(("tile edges", flavor, walk.astype(dtype), lens))
+        small = np.clip(np.cumsum(rng.integers(-60, 61, (3, n)), axis=1),
+                        -100, 100)
+        cases.append(("all code 0", flavor, small.astype(dtype), full))
+        code1 = (np.tile(np.array([big, -big]), (3, n // 2))
+                 + np.sign(big) * swing)
+        cases.append(("all code 1", flavor, code1.astype(dtype), full))
+    wrap = np.tile(np.array([-32768, 32767], np.int16), (3, 2 * tile + 2))
+    cases.append(("wrap extremes", "zz16", wrap,
+                  np.full(3, wrap.shape[1], np.int32)))
+    return cases
 
 
 def adc_counts(rng, n: int) -> np.ndarray:
