@@ -19,7 +19,12 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      rows, data rows cut short, views at storage offsets off the 16-byte
      alignment, 20 repeated calls giving identical bytes;
      E4/D4 (W4) per flavor on [4, 4M] signal-like and uniform content, the
-     code boundaries, the 32-bit wrap, ragged lengths and unlike rows;
+     code boundaries, the 32-bit wrap, ragged lengths and unlike rows, and
+     D4's look-back cases (signals.w4_tile_cases per flavor: lengths on
+     tile edges, all-code-0, all-code-3 and cycling rows, the int32 wrap
+     extremes, none16/none8 sign extremes; data rows cut short, outputs
+     at storage offsets off the 16-byte alignment, 20 repeated [4, 4M]
+     zz32 calls giving identical values);
      V1E/V1D (v1) per flavor on [4, 4M] int8, the odd-nibble input, ragged
      lengths and unlike rows;
   4. main paths: a 64-read corpus through vbz_compress_sized_batch /
@@ -31,12 +36,14 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      version per tier, flavor and direction, with each kernel's bound (the
      bytes it must move at the card's 3.35 TB/s), and the batch API host to
      host per main path; also E/D on zz8 int8 walks [4, 4M] and a [64, 8192]
-     batch, and E4 none32 / D on codec2's [1, 4096] input;
+     batch, and E4 none32 / D on codec2's [1, 4096] input (the W4 and
+     codec2 inputs come from tools.kernel_times);
   6. copy and probe kernels against their plain versions on the card, bit
      for bit: CP at 256 MiB and on row counts that are not powers of two,
-     every case of the capability probe; each timed (L2 flushed, and back
-     to back) beside its plain version, its one-call PyTorch equivalent
-     where there is one, and its bound;
+     every case of the capability probe; each kernel timed on its first
+     case, and the prefix sum also on 4M values (prefix_sum_4m), with the
+     L2 flushed and back to back, beside its plain version, its one-call
+     PyTorch equivalent where there is one, and its bound;
   7. the bench path: vbz_compression_tpu_torch.bench on the four tiers (one
      pass), the copy bandwidth and the pipeline line; E, D and CP must have
      launched (counts set to 0 just before and read just after);
@@ -111,6 +118,7 @@ AUX = {
     "roll_rows": (_PROBE, "tools/probe_dynroll.py:79"),
     "flat_shift_right": (_PROBE, "tools/probe_dynroll.py:79"),
     "prefix_sum": (_PROBE, "tools/probe_dynroll.py:79"),
+    "prefix_sum_4m": (_PROBE, "tools/probe_dynroll.py:79"),
     "store_bytes": (_PROBE, "tools/probe_i8dma.py:45"),
     "load_bytes": (_PROBE, "tools/probe_i8dma.py:64"),
     "pack_keys": (_PROBE, "tools/probe_keypack.py:50"),
@@ -132,11 +140,13 @@ class Port:
         from vbz_compression_tpu_torch import api, bench, signals
         from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1,
                                                    svb_w2, svb_w4)
-        from vbz_compression_tpu_torch.tools import capability_probe
+        from vbz_compression_tpu_torch.tools import (capability_probe,
+                                                     kernel_times)
         from vbz_compression_tpu_torch.utils import profiling, roofline
 
         self.torch, self.pkg, self.api, self.signals = torch, pkg, api, signals
         self.build, self.bench, self.probe = _build, bench, capability_probe
+        self.times = kernel_times
         self.probes, self.profiling, self.roofline = probes, profiling, roofline
         self.mods = {"w2": svb_w2, "w4": svb_w4, "v1": svb_v1}
         self.fns = {
@@ -210,21 +220,6 @@ def w2_cases(sig, tier_rows: dict, tile: int) -> list:
     return cases
 
 
-def w4_rows(sig, flavor: str, content: str) -> np.ndarray:
-    """[B, N] input of a W4 flavor: signal-like or uniform content."""
-    flavors = ("zz32", "none32", "none16", "none8")
-    rng = np.random.default_rng(100 + 2 * flavors.index(flavor)
-                                + (content == "uniform"))
-    dtype = {"zz32": np.int32, "none32": np.int32, "none16": np.int16,
-             "none8": np.int8}[flavor]
-    if content == "uniform":
-        return sig.uniform(rng, B * N, dtype).reshape(B, N)
-    make = {"zz32": sig.int32_walk, "none8": sig.int8_walk,
-            "none32": lambda r, n: sig.CORPUS_KINDS["u32"](r, n).view(np.int32),
-            "none16": lambda r, n: sig.adc_counts(r, n).view(np.int16)}[flavor]
-    return np.stack([make(rng, N) for _ in range(B)])
-
-
 def v1_rows(sig, flavor: str) -> np.ndarray:
     """[B, N] int8 for v1: an int8 walk, uniform bytes, the odd-nibble
     pattern and a walk with long zero runs."""
@@ -235,13 +230,15 @@ def v1_rows(sig, flavor: str) -> np.ndarray:
                      sig.v1_odd_nibbles(N), runs])
 
 
-def new_cases(sig) -> list:
+def new_cases(port: Port, sig) -> list:
     """(name, pair, flavor, rows, lens) for E4/D4 and V1E/V1D."""
     rng = np.random.default_rng(6)
-    cases = []
+    cases = [(name, "w4", flavor, rows, lens)
+             for name, flavor, rows, lens in sig.w4_tile_cases(
+                 port.build.lib("w4").vbz_w4_decode_tile())]
     for flavor in ("zz32", "none32", "none16", "none8"):
         for content in ("signal", "uniform"):
-            rows = w4_rows(sig, flavor, content)
+            rows = port.times.w4_rows(flavor, content)
             cases.append((f"{flavor} {content}", "w4", flavor, rows,
                           _full(rows)))
     bounds = np.tile(np.array([0, 1, 255, 256, 65535, 65536, (1 << 24) - 1,
@@ -392,6 +389,44 @@ def check_w2_lookback(port: Port, tile: int, rows: np.ndarray) -> None:
           "identical bytes")
 
 
+def check_w4_lookback(port: Port, tile: int) -> None:
+    """D4 on data rows cut shorter than the keys require, per flavor;
+    decoding into outputs that start 1-3 elements into their buffer (off
+    the 16-byte alignment); 20 calls on [4, 4M] zz32 giving the same
+    values: a look-back race would make them differ from call to call."""
+    torch, w4 = port.torch, port.mods["w4"]
+    code3 = {c[1]: c[2:] for c in port.signals.w4_tile_cases(tile)
+             if c[0] == "all code 3"}
+    for flavor, (x, lens) in code3.items():
+        x = torch.from_numpy(x).to(DEVICE)
+        n = torch.from_numpy(lens).to(DEVICE)
+        keys, data, data_len = w4.encode_w4_rows(x, n, flavor)
+        for D in (1, tile - 1, 4 * tile + 1, int(data_len.min()) - 3):
+            short = data[:, :D].contiguous()
+            if not torch.equal(w4.decode_w4_rows(keys, short, n, flavor),
+                               w4.decode_w4_rows_plain(keys, short, n,
+                                                       flavor)):
+                raise SystemExit(f"w4 {flavor}: D4 differs from plain on a "
+                                 f"data row cut at {D} bytes")
+        for shift in (1, 2, 3):
+            out = _shifted(torch.zeros_like(x), shift)
+            w4.decode_w4_rows(keys, data, n, flavor, out=out)
+            if not torch.equal(out, x):
+                raise SystemExit(f"w4 {flavor}: D4 into an output {shift} "
+                                 "elements off its buffer's start differs")
+    print("  w4 short data rows and outputs at storage offsets 1-3: D4 "
+          "equals plain, every flavor")
+    x = torch.from_numpy(port.times.w4_rows("zz32", "signal")).to(DEVICE)
+    n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                   device=DEVICE)
+    keys, data, _ = w4.encode_w4_rows(x, n, "zz32")
+    for _ in range(20):
+        if not torch.equal(w4.decode_w4_rows(keys, data, n, "zz32"), x):
+            raise SystemExit("w4: a repeated D4 call gave other values")
+    print(f"  w4 repeats: 20 calls of D4 on {list(x.shape)} zz32 give "
+          "identical values")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main paths
 # ---------------------------------------------------------------------------
@@ -480,17 +515,6 @@ def time_pair(port: Port, label: str, rows: np.ndarray, flush) -> dict:
     return t
 
 
-def codec2_rows(port: Port) -> tuple[np.ndarray, np.ndarray]:
-    """codec2's input (``test_codec2_pack_matches_e4_none32_and_d``): a
-    [1, 4096] int16 walk, and its zig-zag deltas as int32, which E4 none32
-    packs as codec2's encode did."""
-    rng = np.random.default_rng(0)
-    sig = np.clip(500 + np.cumsum(rng.normal(0, 12, 4096)), -2000,
-                  2000).astype(np.int16)
-    zz = port.pkg.oracle.zigzag_delta_encode(sig, 2).astype(np.int32)
-    return sig[None], zz[None]
-
-
 # ---------------------------------------------------------------------------
 # Phase 6: the copy and probe kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -524,12 +548,13 @@ def check_aux(port: Port) -> dict:
         print(f"  {case.key:16s} {case.name:28s} max abs err {err}")
         if err != 0:
             raise SystemExit(f"kernel mismatch in {case.key} {case.name!r}")
-        if case.key in out:
+        name = case.timed_as or case.key
+        if name in out:
             continue
         bound_ms = roof.bound_ms(case.nbytes)
         lib = case.library
-        out[case.key] = t = {
-            "max_abs_err": err, "timed_on": case.name,
+        out[name] = t = {
+            "max_abs_err": err, "timed_on": case.name, "counts_in": case.key,
             "ms": prof.cold_ms(case.kernel, flush, REPEATS),
             "warm_ms": prof.warm_ms(case.kernel, CALLS, REPEATS),
             "plain_ms": prof.warm_ms(case.plain, CALLS, REPEATS),
@@ -627,8 +652,10 @@ def main() -> int:
     print(f"  tiers {sorted(tier_rows)} at [{B}, {N}] generated on the host "
           f"in {time.perf_counter() - t0:.1f} s")
     tile = port.build.lib("w2").vbz_w2_tile()
-    err = check_kernels(port, w2_cases(sig, tier_rows, tile) + new_cases(sig))
+    err = check_kernels(port, w2_cases(sig, tier_rows, tile)
+                        + new_cases(port, sig))
     check_w2_lookback(port, tile, tier_rows["realistic"])
+    check_w4_lookback(port, port.build.lib("w4").vbz_w4_decode_tile())
     lap("3 kernels")
 
     # Phase 4: the main paths.
@@ -648,8 +675,8 @@ def main() -> int:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     inputs = {f"w2 zz16 {k}": v for k, v in tier_rows.items()}
     for flavor in ("zz32", "none32", "none16", "none8"):
-        inputs[f"w4 {flavor} signal"] = w4_rows(sig, flavor, "signal")
-    inputs["w4 zz32 uniform"] = w4_rows(sig, "zz32", "uniform")
+        inputs[f"w4 {flavor} signal"] = port.times.w4_rows(flavor, "signal")
+    inputs["w4 zz32 uniform"] = port.times.w4_rows("zz32", "uniform")
     walk8 = np.stack([sig.int8_walk(np.random.default_rng(b), N)
                       for b in range(B)])
     inputs["v1 zz8 signal"] = inputs["v1 none8 signal"] = walk8
@@ -659,7 +686,7 @@ def main() -> int:
     # Rows 8-9 and 12 of PERF.md's kernel table: the short chunks that
     # pallas_codec3 took, as one batch, and codec2's input.
     inputs["w2 zz16 batch64x8192"] = sig.TIERS["realistic"](64, 8192)
-    c2_sig, c2_zz = codec2_rows(port)
+    c2_sig, c2_zz = port.times.codec2_rows()
     inputs["w4 none32 codec2"] = c2_zz
     inputs["w2 zz16 codec2"] = c2_sig
     times = {label: time_pair(port, label, rows, flush)
@@ -713,7 +740,8 @@ def main() -> int:
         t = aux[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
-            "launches": launched(name), "max_abs_err": t["max_abs_err"],
+            "launches": launched(t["counts_in"]),
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "warm_ms": t["warm_ms"],

@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: E/D (W2), E4/D4 (W4) and V1E/V1D
 (v1) against their plain PyTorch versions and, through the backend, against
-the port's NumPy oracle; E/D's look-back across tiles (tile edges, uniform
-codes, short data rows, views off alignment, repeated calls); the copy
-kernel CP and the capability probe's kernels against their plain versions.
-Exact.
+the port's NumPy oracle; the look-back across tiles of E/D and D4 (tile
+edges, uniform codes, short data rows, views off alignment, repeated calls);
+the copy kernel CP and the capability probe's kernels against their plain
+versions, the prefix sum also on tile edges and in repeated calls. Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -20,7 +20,7 @@ from vbz_compression_tpu_torch import oracle, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
 from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1, svb_w2,
                                            svb_w4)
-from vbz_compression_tpu_torch.tools import capability_probe
+from vbz_compression_tpu_torch.tools import capability_probe, kernel_times
 from vbz_compression_tpu_torch.utils import roofline
 
 # flavor -> (row module, encode, plain encode, decode, plain decode, dtype)
@@ -174,6 +174,89 @@ def test_w2_repeated_calls_give_identical_bytes_on_card(cuda_device):
         assert torch.equal(svb_w2.decode_w2_rows(keys, data, n, "zz16"), x)
 
 
+def _w4_check(x, n, flavor):
+    """E4 and D4 against their plain versions on x [B, N] with lengths n,
+    bit for bit; returns E4's outputs."""
+    k1, d1, l1 = svb_w4.encode_w4_rows(x, n, flavor)
+    k0, d0, l0 = svb_w4.encode_w4_rows_plain(x, n, flavor)
+    assert torch.equal(k1, k0) and torch.equal(l1, l0)
+    written = torch.arange(d0.shape[1], device=x.device)[None] < l0[:, None]
+    assert torch.equal(torch.where(written, d1, 0),
+                       torch.where(written, d0, 0))
+    o1 = svb_w4.decode_w4_rows(k1, d1, n, flavor)
+    assert torch.equal(o1, svb_w4.decode_w4_rows_plain(k1, d1, n, flavor))
+    valid = torch.arange(x.shape[1], device=x.device)[None] < n[:, None]
+    assert torch.equal(o1, torch.where(valid, x, 0))
+    return k1, d1, l1
+
+
+def _w4_tile_case(name: str, flavor: str, device):
+    """(rows, lens) of signals.w4_tile_cases at D4's tile, on the card."""
+    cases = signals.w4_tile_cases(_build.lib("w4").vbz_w4_decode_tile())
+    rows, lens = next(c[2:] for c in cases if c[:2] == (name, flavor))
+    return torch.from_numpy(rows).to(device), torch.from_numpy(lens).to(device)
+
+
+_W4_FLAVORS = ("zz32", "none32", "none16", "none8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flavor", [
+    *((name, f) for name in ("tile edges", "all code 0", "all code 3",
+                             "codes cycling") for f in _W4_FLAVORS),
+    ("wrap extremes", "zz32"), ("negative", "none16"), ("negative", "none8")])
+def test_w4_lookback_cases_match_plain_on_card(cuda_device, name, flavor):
+    """Lengths on D4's tile edges (the row's last values share a thread
+    with values past the count), one-code and cycling rows, the int32 wrap
+    extremes, the none16/none8 sign extremes."""
+    _w4_check(*_w4_tile_case(name, flavor, cuda_device), flavor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", _W4_FLAVORS)
+def test_w4_decode_short_data_row_on_card(cuda_device, flavor):
+    """Data rows cut shorter than the keys require, inside and between
+    tiles: D4 reads nothing at or past D, and missing bytes read as 0, as in
+    the plain version."""
+    x, n = _w4_tile_case("all code 3", flavor, cuda_device)
+    keys, data, data_len = _w4_check(x, n, flavor)
+    for D in (1, 4095, 4 * 4096 + 1, int(data_len.min()) - 3):
+        short = data[:, :D].contiguous()
+        assert torch.equal(svb_w4.decode_w4_rows(keys, short, n, flavor),
+                           svb_w4.decode_w4_rows_plain(keys, short, n, flavor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,shift", [
+    (f, s) for f in _W4_FLAVORS for s in (1, 2, 3)])
+def test_w4_decode_into_views_off_alignment_on_card(cuda_device, flavor,
+                                                    shift):
+    """Outputs that are contiguous views 1-3 elements into their buffer
+    (int32, int16 and int8 off the 16-byte alignment): D4 stores them one
+    value at a time and gives the plain version's values; keys and data at
+    the same shift."""
+    x, n = _w4_tile_case("tile edges", flavor, cuda_device)
+    keys, data, _ = _w4_check(x, n, flavor)
+    out = _shifted(torch.zeros_like(x), shift)
+    got = svb_w4.decode_w4_rows(_shifted(keys, shift), _shifted(data, shift),
+                                n, flavor, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out, svb_w4.decode_w4_rows_plain(keys, data, n, flavor))
+
+
+@pytest.mark.cuda
+def test_w4_repeated_calls_give_identical_values_on_card(cuda_device):
+    """A look-back race shows as output that changes from call to call: 20
+    D4 calls on [4, 4M] zz32 give the same values, the input's."""
+    x = torch.from_numpy(kernel_times.w4_rows("zz32", "signal")).to(
+        cuda_device)
+    n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                   device=cuda_device)
+    keys, data, _ = _w4_check(x, n, "zz32")
+    for _ in range(20):
+        assert torch.equal(svb_w4.decode_w4_rows(keys, data, n, "zz32"), x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size,zigzag,version", [
     (2, True, 0), (1, True, 0), (4, True, 0), (4, False, 0), (2, False, 0),
@@ -215,6 +298,33 @@ def test_copy_matches_plain_on_card(cuda_device, R, rows):
     assert torch.equal(roofline.copy_blocked(x, rows),
                        roofline.copy_blocked_plain(x))
     assert roofline.COPY_LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 5, 32768,
+                               32769, (1 << 22) + 7])
+def test_prefix_sum_matches_plain_on_card(cuda_device, n):
+    """Lengths on the prefix sum's tile edges, one cluster of tiles (up to
+    32768 values) and beyond it (look-back), full int32 range: one launch
+    each, equal to the plain version."""
+    x = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31, (1, n),
+                                          dtype=np.int64)
+    x = torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+    before = probes.LAUNCHES["prefix_sum"]
+    assert torch.equal(probes.prefix_sum(x), probes.prefix_sum_plain(x))
+    assert probes.LAUNCHES["prefix_sum"] == before + 1
+
+
+@pytest.mark.cuda
+def test_prefix_sum_repeated_calls_on_card(cuda_device):
+    """20 calls on 4M values (1024 tiles) give the same values, the plain
+    version's: a look-back race would make them differ."""
+    x = np.random.default_rng(7).integers(-2 ** 31, 2 ** 31, (32768, 128),
+                                          dtype=np.int64)
+    x = torch.from_numpy(x.astype(np.int32)).to(cuda_device)
+    want = probes.prefix_sum_plain(x)
+    for _ in range(20):
+        assert torch.equal(probes.prefix_sum(x), want)
 
 
 @pytest.mark.cuda

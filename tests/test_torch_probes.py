@@ -103,6 +103,17 @@ def test_prefix_sum_wraps_at_32_bits():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 5])
+def test_prefix_sum_plain_at_tile_edges(n):
+    """Lengths around the kernel's 4096-value tiles, full int32 range:
+    numpy's cumsum mod 2^32."""
+    x = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31, (1, n),
+                                          dtype=np.int64)
+    want = (np.cumsum(x) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    got = probes.prefix_sum_plain(_t(x.astype(np.int32))).numpy()
+    np.testing.assert_array_equal(got.reshape(-1), want)
+
+
 # ---------------------------------------------------------------------------
 # i8dma
 # ---------------------------------------------------------------------------

@@ -4,11 +4,15 @@ JAX package's Pallas W4 kernels and the NumPy oracle.
 The JAX side runs as ``tests/test_pallas_kernels.py`` runs it, in interpret
 mode, on that file's inputs (``test_pallas3_zz32``,
 ``test_pallas3_none16_sign_extends``, ``test_w4_dense_*``, and the
-``_roundtrip`` inputs of ``pallas_codec2``); the port side runs the plain
+``_roundtrip`` inputs of ``pallas_codec2``) and on the content of
+``signals.w4_tile_cases``, whose rows also go whole against the oracle at
+D4's tile; the port side runs the plain
 PyTorch version, which is what ``encode_w4_rows`` / ``decode_w4_rows`` do
 for CPU tensors. Every comparison is exact: the codec is an integer codec.
 The kernels themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -21,12 +25,20 @@ from vbz_compression_tpu.ops import pallas_codec2 as pc2
 from vbz_compression_tpu.ops import pallas_codec3 as pc3
 from vbz_compression_tpu.ops import pallas_w4 as pw4
 from vbz_compression_tpu.ops import scalar
-from vbz_compression_tpu_torch import oracle
+from vbz_compression_tpu_torch import oracle, signals
 from vbz_compression_tpu_torch.ops import svb_w2, svb_w4
 
 _SIZE = {"zz32": 4, "none32": 4, "none16": 2, "none8": 1}
 _DTYPE = {"zz32": np.int32, "none32": np.int32, "none16": np.int16,
           "none8": np.int8}
+_TILE = 4096  # D4's tile on the card (vbz_w4_decode_tile)
+# (name, flavor) of every case of signals.w4_tile_cases.
+_TILE_CASES = [(name, flavor)
+               for name in ("tile edges", "all code 0", "all code 3",
+                            "codes cycling")
+               for flavor in _SIZE] + [("wrap extremes", "zz32"),
+                                       ("negative", "none16"),
+                                       ("negative", "none8")]
 
 
 def _encode(rows: np.ndarray, lens, flavor: str):
@@ -90,7 +102,11 @@ def _case(name: str):
 def test_matches_pallas_w4(name):
     """Keys, data and decoded values equal to the Pallas W4 kernels' (codec3
     below 16384 values, the dense kernels above) and to the oracle's."""
-    sig, flavor, block, gen = _case(name)
+    _check_against_pallas(*_case(name))
+
+
+def _check_against_pallas(sig: np.ndarray, flavor: str, block: int,
+                          gen: str) -> None:
     N = sig.size
     ref = scalar.svb_compress(sig, _SIZE[flavor], flavor == "zz32", 0)
     assert ref == oracle.svb_compress(sig, _SIZE[flavor], flavor == "zz32", 0)
@@ -118,6 +134,39 @@ def test_matches_pallas_w4(name):
     np.testing.assert_array_equal(out, np.asarray(jout))
     np.testing.assert_array_equal(out, sig)
     assert out.dtype == sig.dtype
+
+
+@functools.cache
+def _tile_cases() -> dict:
+    return {c[:2]: c[2:] for c in signals.w4_tile_cases(_TILE)}
+
+
+@pytest.mark.parametrize("name,flavor", _TILE_CASES)
+def test_tile_cases_match_oracle(name, flavor):
+    """Rows of signals.w4_tile_cases at D4's tile, whole: each row's stream
+    is the oracle's, and decode gives the row back and zeros past its
+    length."""
+    rows, lens = _tile_cases()[(name, flavor)]
+    lens = [int(n) for n in lens]
+    streams, keys, data = _encode(rows, lens, flavor)
+    for b, n in enumerate(lens):
+        assert streams[b] == oracle.svb_compress(
+            rows[b, :n], _SIZE[flavor], flavor == "zz32", 0), f"row {b}"
+    out = _decode(keys, data, lens, flavor)
+    for b, n in enumerate(lens):
+        np.testing.assert_array_equal(out[b, :n], rows[b, :n])
+        assert not out[b, n:].any()
+
+
+@pytest.mark.parametrize("name,flavor", [c for c in _TILE_CASES
+                                         if c[0] != "tile edges"])
+def test_tile_contents_match_pallas3(name, flavor):
+    """The content of each one-code, cycling and extreme case: the first
+    1024 values of its first row through pallas_codec3's W4 kernels (the
+    size interpret mode allows), the plain versions and the oracle."""
+    rows, _ = _tile_cases()[(name, flavor)]
+    _check_against_pallas(np.ascontiguousarray(rows[0, :1024]), flavor, 512,
+                          "codec3")
 
 
 def _codec2_input(name: str) -> tuple[np.ndarray, int]:
@@ -200,6 +249,22 @@ def test_decode_stays_inside_data():
     np.testing.assert_array_equal(out[0, :100], sig[:100])
     assert out[0, 100] == 0  # bytes 400-401 of its four are there, and 0
     assert not out[0, 101:].any()
+
+
+def test_decode_into_out():
+    """``out`` receives the values, at any storage offset; an ``out`` of
+    another dtype or shape raises."""
+    x = torch.from_numpy(np.arange(-600, 600, 3, dtype=np.int16)[None])
+    n = torch.tensor([397], dtype=torch.int32)
+    keys, data, _ = svb_w4.encode_w4_rows(x, n, "none16")
+    out = torch.full((x.numel() + 1,), 7, dtype=torch.int16)[1:].view(x.shape)
+    got = svb_w4.decode_w4_rows(keys, data, n, "none16", out=out)
+    assert got is out
+    assert torch.equal(out, svb_w4.decode_w4_rows_plain(keys, data, n,
+                                                        "none16"))
+    for bad in (torch.zeros_like(x, dtype=torch.int32), x[:, :396]):
+        with pytest.raises(ValueError):
+            svb_w4.decode_w4_rows(keys, data, n, "none16", out=bad)
 
 
 def test_cpu_tensor_runs_plain_and_counts_nothing():

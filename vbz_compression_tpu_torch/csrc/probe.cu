@@ -7,8 +7,8 @@
 //   dynroll  (tools/probe_dynroll.py, pallas_call :79): roll_2d (rows or
 //            lanes by a runtime amount, np.roll semantics; _kernel_dynlane
 //            :22, _kernel_dynsub :27), flat_shift_right (zero fill;
-//            _kernel_flatdyn :50), prefix_sum (inclusive, flat, mod 2^32,
-//            with row_scan.cuh's block scan; _kernel_mxu_psum :54)
+//            _kernel_flatdyn :50), prefix_sum (inclusive, flat, mod 2^32;
+//            _kernel_mxu_psum :54)
 //   i8dma    (tools/probe_i8dma.py :45, :64): store_bytes (int32 -> int8 at
 //            any byte offset; _wr_kernel :17), load_bytes (int8 window ->
 //            int32, sign-extended; _rd_kernel :28)
@@ -28,14 +28,22 @@
 // not counted (the data sheet gives no int32 rate), and at the probe's size
 // each stage takes a launch's latency. Design:
 // grid-stride loops, neighbouring threads on neighbouring elements, 16-byte
-// vectors where the layout allows; the prefix sum is one block of 1024
-// threads carrying its sum from one 1024-value step to the next, as the
-// row scans of the codec do.
+// vectors where the layout allows. The prefix sum is one launch over tiles
+// of 256 threads x 16 values, one tile per block: four int4 loads per
+// thread, a serial scan in registers, row_scan.cuh's block scan, four int4
+// stores. Up to 8 tiles (the probe's [256, 128]) run as one thread block
+// cluster, whose blocks add the sums of the tiles before them from each
+// other's shared memory: no state to fill, no ticket. More tiles take
+// their tile by ticket and the sum before it by lookback.cuh's decoupled
+// look-back over a single row, whose state the caller zeroes.
 
+#include <climits>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
 #include "row_scan.cuh"
 
 namespace {
@@ -43,7 +51,12 @@ namespace {
 using namespace vbz;
 
 constexpr int kProbeThreads = 256;
-constexpr int kScanBlock = 1024;
+// The prefix sum's tile: kScanBlock threads of kScanPer values (int4s);
+// up to kClusterTiles tiles run as one thread block cluster.
+constexpr int kScanBlock = 256;
+constexpr int kScanPer = 16;
+constexpr int kScanTile = kScanBlock * kScanPer;
+constexpr int kClusterTiles = 8;  // the portable cluster size
 constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks per SM of an H100
 
 unsigned grid_for(long long n) {
@@ -83,18 +96,85 @@ __global__ void flat_shift_right(const int* __restrict__ x,
   }
 }
 
-// Inclusive prefix sum (mod 2^32) of n int32, one block.
+// Inclusive prefix sum (mod 2^32) of n int32, one tile of kScanTile values
+// per block. With scratch (the ticket, then a status word per tile), tiles
+// go in ticket order and carry by look-back; without (n within
+// kClusterTiles tiles), the grid is one cluster whose blocks read the sums
+// of the tiles before them from each other's shared memory.
 __global__ void __launch_bounds__(kScanBlock)
-    prefix_sum(const int* __restrict__ x, int* __restrict__ out, long long n) {
+    prefix_sum(const int* __restrict__ x, int* __restrict__ out, long long n,
+               StatusWord* scratch) {
   __shared__ uint32_t smem[kScanBlock / 32];
-  uint32_t carry = 0;
-  for (long long base = 0; base < n; base += kScanBlock) {
-    const long long i = base + threadIdx.x;
-    const uint32_t v = i < n ? static_cast<uint32_t>(x[i]) : 0u;
-    uint32_t total;
-    const uint32_t before = block_exclusive_scan<kScanBlock>(v, &total, smem);
-    if (i < n) out[i] = static_cast<int>(carry + before + v);
-    carry += total;
+  __shared__ uint32_t tile_sum, tile_carry;
+  const int t = scratch ? static_cast<int>(take_ticket(scratch))
+                        : static_cast<int>(blockIdx.x);
+  const long long i0 =
+      static_cast<long long>(t) * kScanTile + kScanPer * threadIdx.x;
+  // Whole runs of kScanPer at 16-byte aligned addresses move as int4s
+  // (every thread's run starts a multiple of 16 bytes after the last, so the
+  // tensors' own alignment decides); the rest one value at a time.
+  const bool vec =
+      i0 + kScanPer <= n &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0;
+  uint32_t v[kScanPer];
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < kScanPer / 4; ++q) {
+      const int4 a = reinterpret_cast<const int4*>(x + i0)[q];
+      v[4 * q] = a.x;
+      v[4 * q + 1] = a.y;
+      v[4 * q + 2] = a.z;
+      v[4 * q + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      v[k] = i0 + k < n ? static_cast<uint32_t>(x[i0 + k]) : 0u;
+    }
+  }
+#pragma unroll
+  for (int k = 1; k < kScanPer; ++k) v[k] += v[k - 1];
+  uint32_t agg;
+  uint32_t add =
+      block_exclusive_scan<kScanBlock>(v[kScanPer - 1], &agg, smem);
+  if (scratch) {
+    StatusWord* status = scratch + kLookbackHeader;
+    if (threadIdx.x == 0) publish_aggregate(status, t, agg);
+    if (threadIdx.x < 32) {
+      const uint32_t carry = resolve_prefix(status, t, agg);
+      if (threadIdx.x == 0) tile_carry = carry;
+    }
+    __syncthreads();
+  } else {
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    if (threadIdx.x == 0) tile_sum = agg;
+    cluster.sync();
+    if (threadIdx.x < 32) {
+      uint32_t c = static_cast<int>(threadIdx.x) < t
+                       ? *cluster.map_shared_rank(&tile_sum, threadIdx.x)
+                       : 0u;
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(kWarpMask, c, d);
+      if (threadIdx.x == 0) tile_carry = c;
+    }
+    cluster.sync();  // no block leaves while another reads its tile_sum
+  }
+  add += tile_carry;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) v[k] += add;
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < kScanPer / 4; ++q) {
+      reinterpret_cast<int4*>(out + i0)[q] =
+          make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      if (i0 + k < n) out[i0 + k] = static_cast<int>(v[k]);
+    }
   }
 }
 
@@ -208,9 +288,39 @@ int vbz_probe_flat_shift_right(const int* x, int* out, long long n,
   VBZ_LAUNCH(flat_shift_right, n, x, out, n, a);
 }
 
-int vbz_probe_prefix_sum(const int* x, int* out, long long n, void* stream) {
-  prefix_sum<<<1, kScanBlock, 0, VBZ_STREAM>>>(x, out, n);
-  return static_cast<int>(cudaGetLastError());
+// Values the prefix sum takes without look-back state (one cluster of
+// tiles), and values per tile: above the first, its scratch is
+// 1 + ceil(n / tile) 8-byte words, zeroed before each call; at or below
+// it, scratch is null.
+int vbz_probe_prefix_sum_cluster_values() { return kClusterTiles * kScanTile; }
+int vbz_probe_prefix_sum_tile() { return kScanTile; }
+
+int vbz_probe_prefix_sum(const int* x, int* out, long long n,
+                         StatusWord* scratch, void* stream) {
+  const long long tiles = (n + kScanTile - 1) / kScanTile;
+  if (tiles < 1 || tiles > INT_MAX ||
+      (tiles > kClusterTiles) != (scratch != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (scratch) {
+    prefix_sum<<<static_cast<unsigned>(tiles), kScanBlock, 0, VBZ_STREAM>>>(
+        x, out, n, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(tiles);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles));
+  config.blockDim = dim3(kScanBlock);
+  config.stream = VBZ_STREAM;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, prefix_sum, x, out, n,
+                                             scratch);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // buf holds at least off + n bytes.

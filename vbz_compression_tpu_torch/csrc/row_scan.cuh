@@ -1,13 +1,14 @@
 // Scans shared by the StreamVByte kernels (w2_codec.cu, w4_codec.cu,
-// v1_codec.cu), sm_90a.
+// v1_codec.cu) and the probe's prefix sum, sm_90a.
 //
-// Every kernel of the port splits a batch of B rows into tiles of kTile
-// values, four consecutive values (one key byte) per thread. The TPU kernels
-// carried the running byte offset and the un-delta sum from one grid step to
-// the next; CUDA blocks run in no order, so each carry is a per-row scan
-// over tile totals: a block scan inside the tile, row_exclusive_scan over
-// the tiles of a row, and add_row_carry to add each tile's carry to its
-// decoded values.
+// block_exclusive_scan serves every kernel. The multi-pass kernels (E4,
+// V1E, V1D) split a batch of B rows into tiles of kTile values, four
+// consecutive values (one key byte) per thread. The TPU kernels carried the
+// running byte offset and the un-delta sum from one grid step to the next;
+// CUDA blocks run in no order, so in these kernels each carry is a per-row
+// scan over tile totals: a block scan inside the tile, row_exclusive_scan
+// over the tiles of a row, and add_row_carry to add each tile's carry to its
+// decoded values. The one-pass kernels carry by look-back (lookback.cuh).
 
 #pragma once
 

@@ -21,7 +21,7 @@
 // What bounds them: bytes, per int16 value 2 read, 0.25 key bytes and 1-2
 // data bytes written (the reverse for D), and no arithmetic to speak of. So
 // each is one launch in which every byte crosses device memory once. A block
-// owns one tile of kTileW2 values and carries the row's byte offset (and, in
+// owns one tile of kPassTile values and carries the row's byte offset (and, in
 // D, the un-delta sum) from the tiles before it with the decoupled look-back
 // of lookback.cuh, where the TPU grid carried both in SMEM:
 //   E: 16-byte loads of 16 values per thread (the previous sample from the
@@ -51,7 +51,6 @@
 // Entry points launch on the given stream, allocate nothing (the caller
 // passes the zeroed look-back scratch) and return cudaGetLastError().
 
-#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -59,32 +58,17 @@
 
 #include "lookback.cuh"
 #include "row_scan.cuh"
+#include "tile_io.cuh"
 
 namespace {
 
 using namespace vbz;
 
-constexpr int kPerThread = 16;  // values per thread: 4 key bytes
 // Blocks an SM holds at once: 8 x 256 threads caps registers at 32.
 constexpr int kMinBlocks = 8;
-constexpr int kTileW2 = kThreads * kPerThread;
 // Staged data: at most 2 bytes per value, after up to 15 bytes that align
 // the shared buffer with the span's address mod 16.
-constexpr int kStageBytes = 2 * kTileW2 + 16;
-
-// A thread's values live packed in 32-bit words: kLanes values of X each.
-template <typename X>
-constexpr int kLanes = 4 / static_cast<int>(sizeof(X));
-template <typename X>
-constexpr int kWords = kPerThread / kLanes<X>;
-
-// Value k of a thread's packed words, sign-extended.
-template <typename X>
-__device__ __forceinline__ int lane_value(const uint32_t* w, int k) {
-  using U = std::make_unsigned_t<X>;
-  return static_cast<X>(
-      static_cast<U>(w[k / kLanes<X>] >> (8 * sizeof(X) * (k % kLanes<X>))));
-}
+constexpr int kStageBytes = 2 * kPassTile + 16;
 
 // Values i0..i0+15 of a row of N as packed words (0 past N). kAligned: the
 // tensor starts on a word of 4 values (8 bytes of int16, 4 of int8), and so
@@ -132,58 +116,6 @@ __device__ __forceinline__ void load_words(const X* row, int i0, int N,
   }
 }
 
-// Stores packed words as values i0..i0+15 of a row of N (none past N), with
-// the accesses of load_words.
-template <typename X, bool kAligned>
-__device__ __forceinline__ void store_words(X* row, int i0, int N,
-                                            const uint32_t w[kWords<X>]) {
-  X* p = row + i0;
-  if (!kAligned || i0 + kPerThread > N) {
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (i0 + k < N) p[k] = static_cast<X>(lane_value<X>(w, k));
-    }
-  } else if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-#pragma unroll
-    for (int q = 0; q < kWords<X> / 4; ++q) {
-      reinterpret_cast<uint4*>(p)[q] =
-          make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-    }
-  } else if constexpr (sizeof(X) == 2) {
-#pragma unroll
-    for (int q = 0; q < kWords<X> / 2; ++q) {
-      reinterpret_cast<uint2*>(p)[q] = make_uint2(w[2 * q], w[2 * q + 1]);
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < kWords<X>; ++q) {
-      reinterpret_cast<uint32_t*>(p)[q] = w[q];
-    }
-  }
-}
-
-// Whether a tensor of X starts on a word of 4 values (kAligned above).
-template <typename X>
-bool word_aligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(X)) == 0;
-}
-
-// The 4 key bytes of values i0..i0+15 of a row of N (0 past N): one 32-bit
-// access where the key row allows (N % 16 == 0), else byte by byte.
-__device__ __forceinline__ uint32_t load_keys(const uint8_t* krow, int i0,
-                                              int N) {
-  const uint8_t* p = krow + i0 / 4;
-  if (i0 + kPerThread <= N && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  uint32_t key = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (i0 + 4 * j < N) key |= static_cast<uint32_t>(p[j]) << (8 * j);
-  }
-  return key;
-}
-
 __device__ __forceinline__ void store_keys(uint8_t* krow, int i0, int N,
                                            uint32_t key) {
   uint8_t* p = krow + i0 / 4;
@@ -195,52 +127,6 @@ __device__ __forceinline__ void store_keys(uint8_t* krow, int i0, int N,
   for (int j = 0; j < 4; ++j) {
     if (i0 + 4 * j < N) p[j] = static_cast<uint8_t>(key >> (8 * j));
   }
-}
-
-// Moves the byte span [lo, hi) of device memory to (kToShared) or from the
-// staging buffer, which holds it from stage + lo % 16: both sides agree mod
-// 16, so every whole 16-byte word of the span moves as one vector. The bytes
-// before the first whole word move one per thread on threads 0-31, those
-// after the last on threads 32-47. Nothing outside [lo, hi) is touched.
-template <bool kToShared>
-__device__ __forceinline__ void move_span(uint8_t* stage, uintptr_t lo,
-                                          uintptr_t hi) {
-  const uintptr_t base = lo & ~uintptr_t{15};
-  uintptr_t va = (lo + 15) & ~uintptr_t{15};
-  uintptr_t vb = hi & ~uintptr_t{15};
-  if (va >= vb) va = vb = hi;  // no whole word: the head takes all (< 32)
-  for (uintptr_t a = va + 16 * threadIdx.x; a < vb; a += 16 * blockDim.x) {
-    uint4* g = reinterpret_cast<uint4*>(a);
-    uint4* s = reinterpret_cast<uint4*>(stage + (a - base));
-    if constexpr (kToShared) {
-      *s = *g;
-    } else {
-      *g = *s;
-    }
-  }
-  const uintptr_t a = threadIdx.x < 32 ? lo + threadIdx.x
-                                       : vb + (threadIdx.x - 32);
-  const uintptr_t end = threadIdx.x < 32 ? va : hi;
-  if (threadIdx.x < 48 && a < end) {
-    uint8_t* g = reinterpret_cast<uint8_t*>(a);
-    uint8_t* s = stage + (a - base);
-    if constexpr (kToShared) {
-      *s = *g;
-    } else {
-      *g = *s;
-    }
-  }
-}
-
-// How many of a thread's values lie before the row's length, and the mask
-// of their 2-bit key fields.
-__device__ __forceinline__ int live_values(int len, int i0) {
-  const int n = len - i0;
-  return n < 0 ? 0 : (n > kPerThread ? kPerThread : n);
-}
-
-__device__ __forceinline__ uint32_t live_key_mask(int live) {
-  return live >= kPerThread ? ~0u : (1u << (2 * live)) - 1u;
 }
 
 // The zig-zag values of a thread's 16 values, two 16-bit halves per word
@@ -275,16 +161,6 @@ __device__ __forceinline__ void zigzag_pairs(const uint32_t w[kWords<X>],
   }
 }
 
-// Row b and tile t of a ticket: tickets run across the rows first (ticket
-// t * B + b), so the rows' look-back chains advance side by side, and every
-// tile a look-back waits on (same row, lower t) holds a lower ticket.
-__device__ __forceinline__ void tile_of_ticket(uint32_t ticket, int T, int* b,
-                                               int* t) {
-  const uint32_t B = gridDim.x / T;
-  *t = static_cast<int>(ticket / B);
-  *b = static_cast<int>(ticket - static_cast<uint32_t>(*t) * B);
-}
-
 template <typename X, bool kAligned>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     encode_w2(const X* x, const int* lens, uint8_t* keys, uint8_t* data,
@@ -295,7 +171,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   __shared__ __align__(16) uint8_t stage[kStageBytes];
   int b, t;
   tile_of_ticket(take_ticket(scratch), T, &b, &t);
-  const int base = t * kTileW2;
+  const int base = t * kPassTile;
   const int len = clamp_len(lens[b], N);
   const int i0 = base + kPerThread * threadIdx.x;
   uint8_t* krow = keys + static_cast<size_t>(b) * (N / 4);
@@ -362,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   __syncthreads();
   move_span<false>(stage, lo, lo + agg);
-  if (threadIdx.x == 0 && t == (len - 1) / kTileW2) {
+  if (threadIdx.x == 0 && t == (len - 1) / kPassTile) {
     data_len[b] = static_cast<int>(off + agg);
   }
 }
@@ -396,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   __shared__ __align__(16) uint8_t stage[kStageBytes];
   int b, t;
   tile_of_ticket(take_ticket(scratch), T, &b, &t);
-  const int base = t * kTileW2;
+  const int base = t * kPassTile;
   const int count = clamp_len(counts[b], N);
   const int i0 = base + kPerThread * threadIdx.x;
   // Two status arrays of B * T (= gridDim.x) words: offsets, then sums.
@@ -490,13 +366,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   store_words<X, kAligned>(orow, i0, N, w);
 }
 
-// Tiles of a [B, N] batch, or 0 when they do not fit one grid.
-int grid_tiles(int B, int N) {
-  const long long tiles =
-      static_cast<long long>(B) * ((N + kTileW2 - 1) / kTileW2);
-  return tiles > INT_MAX ? 0 : static_cast<int>(tiles);
-}
-
 template <typename X>
 int encode_launch(const void* x, const int* lens, uint8_t* keys,
                   uint8_t* data, int* data_len, StatusWord* scratch, int B,
@@ -530,7 +399,7 @@ extern "C" {
 // Values per tile, T = ceil(N / tile) tiles per row. The scratch of both
 // entry points is 8-byte words, zeroed before each call: 1 + B * T for
 // encode, 1 + 2 * B * T for decode.
-int vbz_w2_tile() { return kTileW2; }
+int vbz_w2_tile() { return kPassTile; }
 
 // x: [B, N] int16 (elem_bytes 2, zz16) or int8 (elem_bytes 1, zz8);
 // lens: [B] i32. Writes keys [B, N/4], data [B, 2N], data_len [B] i32.

@@ -18,24 +18,35 @@
 // scanned offset, so one pair covers every length and every content.
 //
 // What bounds them is bytes: 1-4 read per input value, 0.25 key bytes plus
-// 1-4 data bytes written (encode), the reverse on decode. The structure is
-// kernel E's (w2_codec.cu): tile sizes -> per-row scan -> write pass, and on
-// decode for zz32 a second per-row scan of the tiles' delta sums plus a
-// carry pass; the none flavors need no un-delta and stop after the gather.
+// 1-4 data bytes written (encode), the reverse on decode.
+//   E4: three launches, row_scan.cuh's structure: tile sizes -> per-row scan
+//       of the tiles' byte counts -> write pass, tiles of kTile values.
+//   D4: one launch with kernel D's design (w2_codec.cu): tiles of kPassTile
+//       values taken by ticket (lookback.cuh), one 32-bit key word per
+//       thread and byte counts by popcount, a block scan and a look-back for
+//       the tile's byte offset, the span staged in shared memory (clipped at
+//       D) with 16-byte vectors, each value's 1 + code bytes taken through a
+//       window of two aligned shared words. zz32 then un-zig-zags, sums in
+//       the thread, block-scans and looks back a second time for the row's
+//       un-delta carry; the none flavors carry nothing more. The output is
+//       written once, truncated to X, with 16-byte stores where aligned.
 //
 // Layout: a batch is B rows of N values (N % 4 == 0) with a per-row length.
 // Keys are [B, N/4] u8, encode data is [B, 4N] u8 (each row dense from byte
 // 0), decode data is [B, D] u8 for any D. Values at or past a row's length
-// take code 0, write no data, and decode to 0; decode never reads a byte at
-// or past D. Entry points launch on the given stream, allocate nothing (the
-// caller passes the [B, T] u32 scratch) and return cudaGetLastError().
+// take code 0, write no data, and decode to 0 (whatever their key bits
+// say); decode never reads a byte at or past D. Entry points launch on the
+// given stream, allocate nothing (the caller passes the scratch: E4's
+// [2, B, T] u32, D4's zeroed look-back state) and return cudaGetLastError().
 
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
 #include "row_scan.cuh"
+#include "tile_io.cuh"
 
 namespace {
 
@@ -131,101 +142,154 @@ __global__ void encode_write(const X* x, const int* lens,
   }
 }
 
-// Data bytes of values i0..i0+3 (i < count): 1 + code each.
-__device__ __forceinline__ uint32_t decode_quad_lens(uint32_t key, int i0,
-                                                     int count, uint32_t n[4]) {
-  uint32_t bytes = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    n[k] = i0 + k < count ? 1u + ((key >> (2 * k)) & 3u) : 0u;
-    bytes += n[k];
+// Blocks an SM holds at once: 8 x 256 threads cap registers at 32. The
+// int32 flavors hold 16 words of values (zz32 spills 36 bytes), yet 4, 5
+// and 6 blocks (up to 64 registers, no spills) measured slower than 8.
+constexpr int kMinBlocksD4 = 8;
+// Staged data: at most 4 bytes per value, after up to 15 bytes that align
+// the shared buffer with the span's address mod 16, and room for the decode
+// window to read past the span (one byte per value past the count, and the
+// word read ahead).
+constexpr int kStageBytesD4 = 4 * kPassTile + 48;
+
+// Places the low bits of v as value k of a thread's packed words.
+template <typename X>
+__device__ __forceinline__ void put_value(uint32_t* w, int k, uint32_t v) {
+  if constexpr (sizeof(X) == 4) {
+    w[k] = v;
+  } else {
+    constexpr uint32_t kMask = (1u << (8 * sizeof(X))) - 1u;
+    if (k % kLanes<X> == 0) w[k / kLanes<X>] = 0;
+    w[k / kLanes<X>] |= (v & kMask) << (8 * sizeof(X) * (k % kLanes<X>));
   }
-  return bytes;
 }
 
-__global__ void decode_sizes(const uint8_t* keys, const int* counts,
-                             uint32_t* tile_bytes, int N, int T) {
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
+template <typename X, bool kZigzag, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocksD4)
+    decode_w4(const uint8_t* keys, const uint8_t* data, const int* counts,
+              X* out, StatusWord* scratch, int N, int T, int D) {
+  static_assert(!kZigzag || sizeof(X) == 4, "zz32 decodes to int32");
+  __shared__ uint32_t scan[kThreads / 32];
+  __shared__ uint32_t tile_off, tile_carry;
+  __shared__ __align__(16) uint8_t stage[kStageBytesD4];
+  int b, t;
+  tile_of_ticket(take_ticket(scratch), T, &b, &t);
+  const int base = t * kPassTile;
   const int count = clamp_len(counts[b], N);
-  uint32_t* out = tile_bytes + static_cast<size_t>(b) * T + blockIdx.x;
-  if (base >= count) {
-    if (threadIdx.x == 0) *out = 0;
-    return;
-  }
-  const int i0 = base + 4 * threadIdx.x;
-  const uint32_t key =
-      i0 < count ? keys[static_cast<size_t>(b) * (N / 4) + i0 / 4] : 0u;
-  uint32_t n[4];
-  const uint32_t bytes = decode_quad_lens(key, i0, count, n);
-  uint32_t total;
-  block_exclusive_scan<kThreads>(bytes, &total, smem);
-  if (threadIdx.x == 0) *out = total;
-}
-
-// Decodes one tile: each value's 1 + code bytes at the scanned offsets.
-// zz32: un-zig-zag, then the inclusive delta sum inside the tile; writes
-// that partial sum to out and the tile's delta total to tile_sum, and
-// finish_undelta adds the sum of the row's earlier tiles. The none
-// flavors write the value truncated to X.
-template <typename X, bool kZigzag>
-__global__ void decode_tiles(const uint8_t* keys, const uint8_t* data,
-                             const int* counts, const uint32_t* tile_off,
-                             X* out, uint32_t* tile_sum, int N, int T, int D) {
-  using U = std::make_unsigned_t<X>;
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int count = clamp_len(counts[b], N);
-  const int i0 = base + 4 * threadIdx.x;
-  const size_t tile = static_cast<size_t>(b) * T + blockIdx.x;
+  const int i0 = base + kPerThread * threadIdx.x;
+  // Status arrays of B * T (= gridDim.x) words: offsets, then (zz32) sums.
+  StatusWord* offsets = scratch + kLookbackHeader + static_cast<size_t>(b) * T;
+  StatusWord* sums = offsets + gridDim.x;
   X* orow = out + static_cast<size_t>(b) * N;
-  if (base >= count) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (i0 + k < N) orow[i0 + k] = 0;
+  uint32_t w[kWords<X>] = {};
+  if (base >= count) {  // past the row's count: zeros
+    store_words<X, kAligned>(orow, i0, N, w);
+    if (threadIdx.x == 0) {
+      publish_status(offsets + t, kStatusAggregate, 0u);
+      if constexpr (kZigzag) publish_status(sums + t, kStatusAggregate, 0u);
     }
-    if (kZigzag && threadIdx.x == 0) tile_sum[tile] = 0;
     return;
   }
-  const uint32_t key =
-      i0 < count ? keys[static_cast<size_t>(b) * (N / 4) + i0 / 4] : 0u;
-  uint32_t n[4];
-  const uint32_t bytes = decode_quad_lens(key, i0, count, n);
-  uint32_t total;
-  uint32_t o = tile_off[tile] + block_exclusive_scan<kThreads>(bytes, &total, smem);
-  const uint8_t* drow = data + static_cast<size_t>(b) * D;
+  // Value k's code at bits 2k, 0 for the values at or past the count.
+  const int live = live_values(count, i0);
+  const uint32_t code =
+      load_keys(keys + static_cast<size_t>(b) * (N / 4), i0, N) &
+      live_key_mask(live);
+  uint32_t agg;
+  const uint32_t in_tile = block_exclusive_scan<kThreads>(
+      static_cast<uint32_t>(live) + __popc(code & 0x55555555u) +
+          2u * __popc(code & 0xAAAAAAAAu),
+      &agg, scan);
+  if (threadIdx.x == 0) publish_aggregate(offsets, t, agg);
+  if (threadIdx.x < 32) {
+    const uint32_t off = resolve_prefix(offsets, t, agg);
+    if (threadIdx.x == 0) tile_off = off;
+  }
+  __syncthreads();
+  // The tile's span of the data row, clipped at D: in-tile byte o exists
+  // when o < avail.
+  const uint32_t off = tile_off;
   const uint32_t limit = static_cast<uint32_t>(D);
-  uint32_t val[4];
+  const uint32_t first = off < limit ? off : limit;
+  const uint32_t end = off + agg < limit ? off + agg : limit;
+  const uint32_t avail = end - first;
+  const uint8_t* drow = data + static_cast<size_t>(b) * D;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(drow + first);
+  move_span<true>(stage, lo, reinterpret_cast<uintptr_t>(drow + end));
+  __syncthreads();
+  // Decode the thread's values (zz32: un-zig-zag and sum them) into w.
+  const uint32_t head = static_cast<uint32_t>(lo & 15) + in_tile;
+  uint32_t sum = 0;
+  if (avail == agg) {
+    // Every byte of the tile is there: a window of two aligned words slides
+    // along the thread's bytes, and value k is its low 1 + code bytes at
+    // byte sh (none at or past the count, whose code is 0: the window moves
+    // one byte past the span for each). The word read ahead may lie past
+    // the span, inside the buffer. The branch is the tile's, not the
+    // thread's: with a branch on the thread's live values as well, the
+    // none flavors' values past the count came out nonzero on the card.
+    const uint32_t* s32 = reinterpret_cast<const uint32_t*>(stage);
+    uint32_t wi = head >> 2, sh = head & 3u;
+    uint32_t cur = s32[wi], nxt = s32[wi + 1];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t v = 0;
-    for (uint32_t j = 0; j < n[k]; ++j) {
-      if (o + j < limit) v |= static_cast<uint32_t>(drow[o + j]) << (8 * j);
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t c = (code >> (2 * k)) & 3u;
+      const uint32_t mask = k < live ? 0xFFFFFFFFu >> (24 - 8 * c) : 0u;
+      const uint32_t v = __funnelshift_r(cur, nxt, 8 * sh) & mask;
+      if constexpr (kZigzag) {
+        sum += (v >> 1) ^ (0u - (v & 1u));
+        put_value<X>(w, k, sum);
+      } else {
+        put_value<X>(w, k, v);
+      }
+      if (k + 1 < kPerThread) {
+        sh += 1 + c;
+        const uint32_t step = sh >> 2;  // at most one word per value
+        sh &= 3u;
+        wi += step;
+        cur = step ? nxt : cur;
+        nxt = s32[wi + 1];
+      }
     }
-    o += n[k];
-    val[k] = v;  // 0 for a value past count
+  } else {
+    // A data row cut short: byte by byte, missing bytes read as 0.
+    const uint8_t* s = stage + (lo & 15);
+    uint32_t o = in_tile;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t n = k < live ? 1u + ((code >> (2 * k)) & 3u) : 0u;
+      uint32_t v = 0;
+#pragma unroll
+      for (uint32_t j = 0; j < 4; ++j) {
+        if (j < n && o + j < avail) {
+          v |= static_cast<uint32_t>(s[o + j]) << (8 * j);
+        }
+      }
+      o += n;
+      if constexpr (kZigzag) {
+        sum += (v >> 1) ^ (0u - (v & 1u));  // 0 for a missing value
+        put_value<X>(w, k, sum);
+      } else {
+        put_value<X>(w, k, v);
+      }
+    }
   }
   if constexpr (kZigzag) {
-    uint32_t sum = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      sum += (val[k] >> 1) ^ (0u - (val[k] & 1u));  // un-zig-zag
-      val[k] = sum;
+    uint32_t total;
+    const uint32_t before = block_exclusive_scan<kThreads>(sum, &total, scan);
+    if (threadIdx.x == 0) publish_aggregate(sums, t, total);
+    if (threadIdx.x < 32) {
+      const uint32_t carry = resolve_prefix(sums, t, total);
+      if (threadIdx.x == 0) tile_carry = carry;
     }
-    const uint32_t before = block_exclusive_scan<kThreads>(sum, &total, smem);
+    __syncthreads();
+    const uint32_t add = tile_carry + before;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) val[k] += before;
-    if (threadIdx.x == 0) tile_sum[tile] = total;
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (i0 + k < N) {
-      orow[i0 + k] = i0 + k < count ? static_cast<X>(static_cast<U>(val[k]))
-                                    : X(0);
+    for (int k = 0; k < kPerThread; ++k) {
+      w[k] = k < live ? w[k] + add : 0u;  // zeros after the row's count
     }
   }
+  store_words<X, kAligned>(orow, i0, N, w);
 }
 
 template <typename X, bool kZigzag>
@@ -253,40 +317,32 @@ int encode_launch(const void* x, const int* lens, uint8_t* keys,
 
 template <typename X, bool kZigzag>
 int decode_launch(const uint8_t* keys, const uint8_t* data, const int* counts,
-                  void* out, uint32_t* scratch, int B, int N, int D,
+                  void* out, StatusWord* scratch, int B, int N, int D,
                   cudaStream_t s) {
-  const int T = (N + kTile - 1) / kTile;
-  const dim3 grid(T, B);
-  const size_t bt = static_cast<size_t>(B) * T;
-  uint32_t* tile_bytes = scratch;
-  uint32_t* tile_off = scratch + bt;
-  uint32_t* tile_sum = scratch + 2 * bt;
-  uint32_t* tile_carry = scratch + 3 * bt;
-  X* o = static_cast<X*>(out);
-  decode_sizes<<<grid, kThreads, 0, s>>>(keys, counts, tile_bytes, N, T);
-  int err = cudaGetLastError();
-  if (err != 0) return err;
-  row_exclusive_scan<<<B, kScanThreads, 0, s>>>(tile_bytes, tile_off, nullptr, T);
-  err = cudaGetLastError();
-  if (err != 0) return err;
-  decode_tiles<X, kZigzag><<<grid, kThreads, 0, s>>>(keys, data, counts,
-                                                     tile_off, o, tile_sum, N,
-                                                     T, D);
-  err = cudaGetLastError();
-  if (err != 0 || !kZigzag) return err;
-  return finish_undelta<X>(o, counts, tile_sum, tile_carry, B, N, T, s);
+  const int tiles = grid_tiles(B, N);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = word_aligned<X>(out) ? decode_w4<X, kZigzag, true>
+                                           : decode_w4<X, kZigzag, false>;
+  kernel<<<tiles, kThreads, 0, s>>>(keys, data, counts, static_cast<X*>(out),
+                                    scratch, N, tiles / B, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Values per tile: the scratch of both entry points is [B, ceil(N / tile)].
-int vbz_w4_tile() { return kTile; }
+// Values per tile of E4: its scratch is [2, B, ceil(N / tile)] u32.
+int vbz_w4_encode_tile() { return kTile; }
+
+// Values per tile of D4, T = ceil(N / tile) tiles per row: its scratch is
+// 8-byte words, zeroed before each call, 1 + 2 * B * T for zz32 (the byte
+// offset and the un-delta sum), 1 + B * T for the none flavors.
+int vbz_w4_decode_tile() { return kPassTile; }
 
 // x: [B, N] int32 (elem_bytes 4; zz32 with zigzag 1, none32 with 0), int16
 // (elem_bytes 2, none16) or int8 (elem_bytes 1, none8); lens: [B] i32.
-// Writes keys [B, N/4], data [B, 4N], data_len [B] i32. scratch: 2*B*T u32.
+// Writes keys [B, N/4], data [B, 4N], data_len [B] i32.
 int vbz_w4_encode(const void* x, const int* lens, uint8_t* keys,
                   uint8_t* data, int* data_len, uint32_t* scratch, int B,
                   int N, int elem_bytes, int zigzag, void* stream) {
@@ -312,9 +368,9 @@ int vbz_w4_encode(const void* x, const int* lens, uint8_t* keys,
 }
 
 // keys: [B, N/4] u8, data: [B, D] u8, counts: [B] i32. Writes out [B, N] of
-// the flavor's type (as for encode). scratch: 4*B*T u32.
+// the flavor's type (as for encode).
 int vbz_w4_decode(const uint8_t* keys, const uint8_t* data, const int* counts,
-                  void* out, uint32_t* scratch, int B, int N, int D,
+                  void* out, StatusWord* scratch, int B, int N, int D,
                   int elem_bytes, int zigzag, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 4 && zigzag) {

@@ -46,12 +46,13 @@ _SIGNATURES = {
         "vbz_w2_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "w4": {
-        "vbz_w4_tile": [],
-        # x, lens, keys, data, data_len, scratch, B, N, elem_bytes, zigzag,
-        # stream
+        "vbz_w4_encode_tile": [],
+        "vbz_w4_decode_tile": [],
+        # x, lens, keys, data, data_len, scratch ([2, B, T] u32), B, N,
+        # elem_bytes, zigzag, stream
         "vbz_w4_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # keys, data, counts, out, scratch, B, N, D, elem_bytes, zigzag,
-        # stream
+        # keys, data, counts, out, scratch (zeroed look-back state), B, N,
+        # D, elem_bytes, zigzag, stream
         "vbz_w4_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "v1": {
@@ -70,8 +71,10 @@ _SIGNATURES = {
         "vbz_probe_roll": [_P, _P, _I, _I, _I, _I, _P],
         # x, out, n, a, stream
         "vbz_probe_flat_shift_right": [_P, _P, _L, _L, _P],
-        # x, out, n, stream
-        "vbz_probe_prefix_sum": [_P, _P, _L, _P],
+        "vbz_probe_prefix_sum_cluster_values": [],
+        "vbz_probe_prefix_sum_tile": [],
+        # x, out, n, scratch (zeroed look-back state), stream
+        "vbz_probe_prefix_sum": [_P, _P, _L, _P, _P],
         # x, buf, off, n, stream
         "vbz_probe_store_bytes": [_P, _P, _L, _L, _P],
         # buf, out, off, n, stream

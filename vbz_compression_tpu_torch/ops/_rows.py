@@ -1,6 +1,7 @@
 """Helpers shared by the StreamVByte row wrappers (``svb_w2``, ``svb_w4``,
-``svb_v1``): argument checks, length masks, key packing for the plain
-versions, and the kernel launch."""
+``svb_v1``) and the probe kernels: argument checks, length masks, key
+packing for the plain versions, the look-back state of the one-pass kernels,
+and the kernel launch."""
 
 from __future__ import annotations
 
@@ -96,6 +97,16 @@ def row_ends(sizes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     total = ends[:, -1] if sizes.shape[1] else torch.zeros(
         sizes.shape[0], dtype=torch.int64, device=sizes.device)
     return ends - sizes, total
+
+
+def lookback_scratch(tile: int, B: int, N: int, carries: int,
+                     device: torch.device) -> torch.Tensor:
+    """The zeroed look-back state of a one-pass kernel (``csrc/lookback.cuh``)
+    on [B, N] in tiles of ``tile`` values: the ticket word, then one 8-byte
+    status word per tile for each carried value (a byte offset, an un-delta
+    sum). The one fill that comes with a launch."""
+    tiles = B * -(-N // tile)
+    return torch.zeros(1 + carries * tiles, dtype=torch.int64, device=device)
 
 
 def launch(fn, what: str, *args) -> None:

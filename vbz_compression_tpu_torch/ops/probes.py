@@ -138,13 +138,24 @@ def prefix_sum_plain(x: torch.Tensor) -> torch.Tensor:
 
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum (mod 2^32) of a 2-D int32 tensor in row-major
-    order; one block of ``row_scan.cuh``'s block scan on the card."""
+    order; on the card one launch over tiles of 4096 values. Up to 32768
+    values the tiles run as one thread block cluster and need no state;
+    above, they carry from tile to tile by a decoupled look-back whose state
+    takes one fill."""
     _check(x, torch.int32, 2, "prefix_sum")
     if _rows.on_cpu(x, "prefix_sum"):
         return prefix_sum_plain(x)
     out = torch.empty_like(x)
     if x.numel():
-        _launch("vbz_probe_prefix_sum", "prefix_sum", x, out, x.numel())
+        from . import _build
+
+        lib = _build.lib("probe")
+        scratch = (_rows.lookback_scratch(lib.vbz_probe_prefix_sum_tile(), 1,
+                                          x.numel(), 1, x.device)
+                   if x.numel() > lib.vbz_probe_prefix_sum_cluster_values()
+                   else None)
+        _launch("vbz_probe_prefix_sum", "prefix_sum", x, out, x.numel(),
+                scratch)
     return out
 
 

@@ -57,16 +57,6 @@ DECODE_LAUNCHES = 0
 _MAX_N = 1 << 29   # keeps every in-row byte offset (< 2N) in an int32
 
 
-def _lookback_scratch(lib, B: int, N: int, carries: int,
-                      device: torch.device) -> torch.Tensor:
-    """The kernels' zeroed look-back state: the ticket word, then one status
-    word per tile (``vbz_w2_tile()`` values) for each carried value: the byte
-    offset, and in decode the un-delta sum. The one fill that comes with a
-    launch."""
-    tiles = B * -(-N // lib.vbz_w2_tile())
-    return torch.zeros(1 + carries * tiles, dtype=torch.int64, device=device)
-
-
 def _dtype(flavor: str) -> torch.dtype:
     if flavor not in FLAVOR_DTYPES:
         raise ValueError(f"flavor {flavor!r} is not a W2 flavor "
@@ -117,7 +107,8 @@ def encode_w2_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
     from . import _build
 
     lib = _build.lib("w2")
-    scratch = _lookback_scratch(lib, B, N, 1, x.device)
+    scratch = _rows.lookback_scratch(lib.vbz_w2_tile(), B, N, 1,
+                                     x.device)
     _rows.launch(lib.vbz_w2_encode, "W2 encode", x, lens, keys, data,
                  data_len, scratch, B, N, x.element_size())
     global ENCODE_LAUNCHES
@@ -171,7 +162,8 @@ def decode_w2_rows(keys: torch.Tensor, data: torch.Tensor,
     from . import _build
 
     lib = _build.lib("w2")
-    scratch = _lookback_scratch(lib, B, N, 2, keys.device)
+    scratch = _rows.lookback_scratch(lib.vbz_w2_tile(), B, N, 2,
+                                     keys.device)
     _rows.launch(lib.vbz_w2_decode, "W2 decode", keys, data, counts, out,
                  scratch, B, N, D, out.element_size())
     global DECODE_LAUNCHES

@@ -21,14 +21,22 @@ output width (the none flavors).
 
 What bounds the kernels is bytes: 1-4 read per input value, 0.25 key bytes
 plus 1-4 data bytes written, the reverse on decode; there is no arithmetic
-to speak of. Each pass sweeps its tile once, four values per thread, and
-the TPU's sequential grid carries become per-row scans over tile totals.
+to speak of. E4 is three launches: tile byte counts, a per-row scan of
+them, and a write pass, four values per thread. D4 is one launch, as kernel
+D of ``svb_w2`` is: a block owns a tile of 4096 values (16 per thread: one
+32-bit key word), takes it from an atomic ticket, gets the row's byte offset
+(and, for zz32, the un-delta sum) of the tiles before it by a decoupled
+look-back (``csrc/lookback.cuh``), stages the tile's data span in shared
+memory with 16-byte vectors, and writes its output once. The wrapper zeroes
+the look-back state (one fill) before each D4 launch.
 
 Layouts (B rows, N values per row, N % 4 == 0):
     encode_w4_rows(x [B,N] i32|i16|i8, lens [B] i32)
         -> keys [B, N/4] u8, data [B, 4N] u8, data_len [B] i32
-    decode_w4_rows(keys [B, N/4] u8, data [B, D] u8, counts [B] i32)
-        -> [B, N] of the flavor's dtype
+    decode_w4_rows(keys [B, N/4] u8, data [B, D] u8, counts [B] i32,
+                   out=None) -> [B, N] of the flavor's dtype (``out`` when
+                   given: a contiguous tensor of that shape and dtype, at
+                   any storage offset)
 Values at or past a row's length take code 0 and no data bytes, and decode
 to 0. ``data[b, data_len[b]:]`` is unspecified. Decode never reads past
 ``data``'s row, whatever the keys say.
@@ -47,7 +55,8 @@ from . import _rows
 FLAVOR_DTYPES = {"zz32": torch.int32, "none32": torch.int32,
                  "none16": torch.int16, "none8": torch.int8}
 
-# Kernel-sequence launches, one per wrapper call that reached the card.
+# Launches, one per wrapper call that reached the card (E4: a sequence of
+# three kernels; D4: one kernel).
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 
@@ -105,7 +114,7 @@ def encode_w4_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
     from . import _build
 
     lib = _build.lib("w4")
-    tiles = -(-N // lib.vbz_w4_tile())
+    tiles = -(-N // lib.vbz_w4_encode_tile())
     scratch = torch.empty(2, B, tiles, dtype=torch.int32, device=x.device)
     _rows.launch(lib.vbz_w4_encode, "W4 encode", x, lens, keys, data,
                  data_len, scratch, B, N, x.element_size(),
@@ -143,28 +152,38 @@ def decode_w4_rows_plain(keys: torch.Tensor, data: torch.Tensor,
 
 
 def decode_w4_rows(keys: torch.Tensor, data: torch.Tensor,
-                   counts: torch.Tensor, flavor: str) -> torch.Tensor:
-    """W4 decode of each row's first ``counts[b]`` values; see the module
-    docstring for the layouts. Kernel D4 on CUDA, the plain version on
-    CPU."""
+                   counts: torch.Tensor, flavor: str,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """W4 decode of each row's first ``counts[b]`` values, into ``out`` when
+    given; see the module docstring for the layouts. Kernel D4 on CUDA, the
+    plain version on CPU."""
     dtype = _dtype(flavor)
     B = _rows.check_decode_args(keys, data, counts)
-    if _rows.on_cpu(keys, "W4 decode"):
-        return decode_w4_rows_plain(keys, data, counts, flavor)
     N, D = 4 * keys.shape[1], data.shape[1]
+    if out is not None and (out.dtype != dtype or tuple(out.shape) != (B, N)
+                            or out.device != keys.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out: want contiguous {dtype} [{B}, {N}] on "
+                         f"{keys.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    if _rows.on_cpu(keys, "W4 decode"):
+        got = decode_w4_rows_plain(keys, data, counts, flavor)
+        return got if out is None else out.copy_(got)
     _rows.check_kernel_args(B, N, _MAX_N, keys, data, counts)
     if D >= 1 << 31:
         raise ValueError(f"data row of {D} bytes exceeds the kernel's int32")
-    out = torch.empty(B, N, dtype=dtype, device=keys.device)
+    if out is None:
+        out = torch.empty(B, N, dtype=dtype, device=keys.device)
     if B == 0 or N == 0:
         return out
     from . import _build
 
     lib = _build.lib("w4")
-    tiles = -(-N // lib.vbz_w4_tile())
-    scratch = torch.empty(4, B, tiles, dtype=torch.int32, device=keys.device)
+    zigzag = flavor == "zz32"
+    scratch = _rows.lookback_scratch(lib.vbz_w4_decode_tile(), B, N,
+                                     1 + zigzag, keys.device)
     _rows.launch(lib.vbz_w4_decode, "W4 decode", keys, data, counts, out,
-                 scratch, B, N, D, out.element_size(), int(flavor == "zz32"))
+                 scratch, B, N, D, out.element_size(), int(zigzag))
     global DECODE_LAUNCHES
     DECODE_LAUNCHES += 1
     return out

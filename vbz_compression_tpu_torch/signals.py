@@ -3,7 +3,8 @@ numpy from a seed: the ``bench.py`` tiers as B rows of N int16 (its
 ``clean`` and ``mixed`` tiers byte for byte, through :func:`gen_signal`),
 a corpus of reads of log-uniform length, content for the other flavors
 (int32, int8 and unsigned signals, uniform noise, the v1 odd-nibble
-pattern), and the inputs that carry W2's look-back across tile edges."""
+pattern), and the inputs that carry W2's and W4's look-back across tile
+edges."""
 
 from __future__ import annotations
 
@@ -257,6 +258,67 @@ def w2_tile_cases(tile: int) -> list:
     wrap = np.tile(np.array([-32768, 32767], np.int16), (3, 2 * tile + 2))
     cases.append(("wrap extremes", "zz16", wrap,
                   np.full(3, wrap.shape[1], np.int32)))
+    return cases
+
+
+def _wrap32(a: np.ndarray) -> np.ndarray:
+    """int64 values wrapped to int32 (mod 2^32)."""
+    return ((a + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+
+
+def w4_tile_cases(tile: int) -> list:
+    """(name, flavor, rows [B, N], lens [B]) that carry W4 decode's byte
+    offset (and zz32's un-delta sum) across tiles of ``tile`` values, for
+    every W4 flavor: unlike rows whose lengths sit on tile edges (N =
+    1,000,004, so rows after the first start off 16-byte alignment),
+    all-code-0 and all-code-3 rows, codes cycling 0-3 (a nonnegative int16
+    takes codes 0-1 and a nonnegative int8 code 0, a negative one code 3, so
+    none16 cycles 0, 1, 3 and none8 0, 3), the int32 wrap extremes (zz32)
+    and the sign-extension extremes of none16 and none8."""
+    rng = np.random.default_rng(43)
+    lens = np.array([1, tile - 1, tile, tile + 1, 3 * tile + 5, 1_000_003],
+                    np.int32)
+    width = -(-int(lens.max()) // 4) * 4
+    n = 3 * tile + 8
+    full = np.full(3, n, np.int32)
+    swing = np.arange(3)[:, None]
+    big = 1 << 25  # a zz32 delta or none32 value of code 3
+    cycles = {"zz32": [5, 300, 70000, big], "none32": [5, 300, 70000, big],
+              "none16": [5, 300, -7], "none8": [5, -7]}
+    cases = []
+    for flavor, dtype in (("zz32", np.int32), ("none32", np.int32),
+                          ("none16", np.int16), ("none8", np.int8)):
+        info = np.iinfo(dtype)
+        if flavor == "zz32":
+            edges = _wrap32(np.cumsum(rng.integers(-70000, 70001,
+                                                   (lens.size, width)),
+                                      axis=1))
+            code0 = np.cumsum(rng.integers(-127, 128, (3, n)), axis=1)
+            code3 = np.tile(np.array([big, -big]), (3, n // 2)) + swing
+            # zig-zag values 5, 300, 70000, 2^25 in turn, as deltas
+            z = np.resize(np.array(cycles[flavor], np.int64), (3, n))
+            cycle = _wrap32(np.cumsum((z >> 1) ^ -(z & 1), axis=1))
+        else:
+            edges = uniform(rng, lens.size * width, dtype).reshape(
+                lens.size, width)
+            code0 = rng.integers(0, min(256, info.max + 1), (3, n))
+            code3 = (rng.integers(info.min, 0, (3, n)) if dtype != np.int32
+                     else np.where(rng.integers(0, 2, (3, n)) == 1,
+                                   rng.integers(big, info.max, (3, n)),
+                                   rng.integers(info.min, 0, (3, n))))
+            cycle = np.resize(np.array(cycles[flavor]), (3, n))
+        cases.append(("tile edges", flavor, edges.astype(dtype), lens))
+        cases.append(("all code 0", flavor, code0.astype(dtype), full))
+        cases.append(("all code 3", flavor, code3.astype(dtype), full))
+        cases.append(("codes cycling", flavor, cycle.astype(dtype), full))
+    wrap = np.tile(np.array([-(1 << 31), (1 << 31) - 1], np.int64),
+                   (3, n // 2))
+    cases.append(("wrap extremes", "zz32", wrap.astype(np.int32), full))
+    for flavor, dtype in (("none16", np.int16), ("none8", np.int8)):
+        info = np.iinfo(dtype)
+        signs = np.array([info.min, -1, info.max, 0, -2], np.int64)
+        cases.append(("negative", flavor,
+                      np.resize(signs, (3, n)).astype(dtype), full))
     return cases
 
 

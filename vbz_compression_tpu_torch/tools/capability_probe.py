@@ -13,7 +13,8 @@ One probe in place of the JAX package's seven TPU tools:
    PyTorch has no kernel for a dtype the line says so;
 2. the Mosaic probes (``tools/probe_{dynroll,i8dma,keypack,widen,i16roll}.py``):
    each kernel of :mod:`..ops.probes` against its plain version on the
-   probes' own inputs, OK or WRONG per case, with the kernel's time (GB/s
+   probes' own inputs (and the prefix sum also on 4M values), OK or WRONG
+   per case, with the kernel's time (GB/s
    for the widening fetches, us per stage for the butterfly);
 3. kernel CP's copy bandwidth at 512-, 2048- and 8192-row tiles
    (``tools/probe_copybw.py``), beside ``dst.copy_(src)``'s on the same
@@ -48,6 +49,7 @@ SHIFTS = (0, 1, 127, 128, 129, 1023)
 WIDEN_BLOCK, WIDEN_BLOCKS = 32768, 128  # probe_widen.py: 128 x 32768 values
 WIDEN_SLACK = 8192                      # FW - BLOCK: data past the last block
 BUTTERFLY_ROWS = 528                    # probe_i16roll.py's R
+PSUM_ROWS = 32768                       # the large prefix sum: 4M int32
 COPY_MIB = 256
 
 
@@ -62,6 +64,7 @@ class Case:
     plain: Callable[[], torch.Tensor]
     library: Callable[[], torch.Tensor] | None
     nbytes: int                     # input read once, output written once
+    timed_as: str | None = None     # its own entry in a table of times
 
 
 def cases(device) -> list[Case]:
@@ -88,13 +91,15 @@ def cases(device) -> list[Case]:
                         lambda a=a: probes.flat_shift_right(x, a),
                         lambda a=a: probes.flat_shift_right_plain(x, a),
                         None, nx))
-    bits = on(rng.integers(0, 2, (256, LANES), dtype=np.int32))
-    out.append(Case("prefix sum [256, 128]", "prefix_sum",
-                    lambda: probes.prefix_sum(bits),
-                    lambda: probes.prefix_sum_plain(bits),
-                    lambda: torch.cumsum(bits.view(-1), 0,
-                                         dtype=torch.int32),
-                    2 * bits.numel() * 4))
+    # The probe's [256, 128], and 4M values: many tiles' look-back.
+    for rows, timed_as in ((256, None), (PSUM_ROWS, "prefix_sum_4m")):
+        bits = on(rng.integers(0, 2, (rows, LANES), dtype=np.int32))
+        out.append(Case(f"prefix sum [{rows}, 128]", "prefix_sum",
+                        lambda b=bits: probes.prefix_sum(b),
+                        lambda b=bits: probes.prefix_sum_plain(b),
+                        lambda b=bits: torch.cumsum(b.view(-1), 0,
+                                                    dtype=torch.int32),
+                        2 * bits.numel() * 4, timed_as))
 
     # i8dma: [64, 128] int32 stored as bytes into 64 KiB and read back.
     vals = on(rng.integers(-120, 120, (64, LANES), dtype=np.int32))

@@ -1,0 +1,241 @@
+"""Kernel times on every codec input, and the probe kernels slower than a
+library call beside it, for comparing two trees.
+
+Run with one CUDA card visible, from the root of a checkout:
+
+    python -m vbz_compression_tpu_torch.tools.kernel_times [--out FILE]
+        [--only w2|w4|v1|probe ...]
+
+The script calls only what every version of the port since the one-pass E
+and D has (the ``svb_w2``, ``svb_w4`` and ``svb_v1`` wrappers,
+``probes.prefix_sum`` and
+``fetch_i32``, ``signals``, the timers of ``utils.profiling`` and the byte
+count of ``utils.roofline``). Run by path, it imports the package that
+``PYTHONPATH`` names, so from the root of another checkout
+``PYTHONPATH=. python /path/to/kernel_times.py`` times that checkout's
+kernels on the same inputs; to compare two trees, run them in turns (A, B,
+B, A) on one card, one after the other. ``chip_smoke.py`` phase 5 times the
+same codec inputs (it takes ``w4_rows`` and ``codec2_rows`` from here), but
+only with its own checkout's kernels.
+
+Inputs, made from seeds with numpy:
+- w2 (E, D): the bench tiers and realistic at [4, 4M] int16 (zz16), four
+  int8 walks [4, 4M] (zz8), realistic at [64, 8192] (short chunks);
+- w4 (E4, D4): each W4 flavor on signal-like content at [4, 4M], zz32 on
+  uniform content, and codec2's [1, 4096] zig-zag deltas (none32);
+- v1 (V1E, V1D): zz8 and none8 on four int8 walks [4, 4M], zz8 on uniform
+  int8 [4, 4M];
+- probe: ``prefix_sum`` on [256, 128] (the capability probe's input) and
+  [32768, 128] int32 beside ``torch.cumsum``, ``fetch_i32`` on 128 x 32768
+  int32 beside ``copy_``, in turns (kernel, library, library, kernel, three
+  times), each turn one call with the L2 flushed and ten back to back.
+For the codec inputs and each direction: one call with the L2 flushed and
+ten back to back, each the best of three (``profiling``'s ``cold_ms`` and
+``warm_ms``), and the bound (the bytes the call must move at the data
+sheet's 3.35 TB/s). The w4 group also lists what ``torch.profiler`` sees of
+five decode calls on zz32 and none16 signal: each kernel's name, launches
+and device us per launch. Prints the card's name and power limit, then one
+JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from vbz_compression_tpu_torch import oracle, signals
+from vbz_compression_tpu_torch.ops import probes, svb_v1, svb_w2, svb_w4
+from vbz_compression_tpu_torch.utils import profiling, roofline
+
+B, N = 4, 4 << 20
+FLUSH_BYTES = 256 << 20
+PROBE_TURNS = 3   # rounds of kernel, library, library, kernel
+W4_FLAVORS = ("zz32", "none32", "none16", "none8")
+W4_DTYPES = {"zz32": np.int32, "none32": np.int32, "none16": np.int16,
+             "none8": np.int8}
+
+
+def w4_rows(flavor: str, content: str) -> np.ndarray:
+    """[B, N] input of a W4 flavor: signal-like or uniform content."""
+    rng = np.random.default_rng(100 + 2 * W4_FLAVORS.index(flavor)
+                                + (content == "uniform"))
+    if content == "uniform":
+        return signals.uniform(rng, B * N, W4_DTYPES[flavor]).reshape(B, N)
+    make = {"zz32": signals.int32_walk, "none8": signals.int8_walk,
+            "none32": lambda r, n: signals.CORPUS_KINDS["u32"](r, n).view(
+                np.int32),
+            "none16": lambda r, n: signals.adc_counts(r, n).view(np.int16)}
+    return np.stack([make[flavor](rng, N) for _ in range(B)])
+
+
+def codec2_rows() -> tuple[np.ndarray, np.ndarray]:
+    """codec2's input (``test_codec2_pack_matches_e4_none32_and_d``): a
+    [1, 4096] int16 walk, and its zig-zag deltas as int32, which E4 none32
+    packs as codec2's encode did."""
+    rng = np.random.default_rng(0)
+    sig = np.clip(500 + np.cumsum(rng.normal(0, 12, 4096)), -2000,
+                  2000).astype(np.int16)
+    zz = oracle.zigzag_delta_encode(sig, 2).astype(np.int32)
+    return sig[None], zz[None]
+
+
+def inputs(pair: str) -> dict:
+    """label -> (flavor, rows) of one kernel pair."""
+    if pair in ("w2", "v1"):
+        walk8 = np.stack([signals.int8_walk(np.random.default_rng(b), N)
+                          for b in range(B)])
+    if pair == "v1":
+        return {f"zz8 int8 walk [{B}, {N}]": ("zz8", walk8),
+                f"none8 int8 walk [{B}, {N}]": ("none8", walk8),
+                f"zz8 uniform [{B}, {N}]": ("zz8", signals.uniform(
+                    np.random.default_rng(9), B * N, np.int8).reshape(B, N))}
+    if pair == "w2":
+        out = {f"zz16 {k} [{B}, {N}]": ("zz16", v)
+               for k, v in signals.tiers(B, N).items()}
+        out[f"zz8 int8 walk [{B}, {N}]"] = ("zz8", walk8)
+        out["zz16 realistic [64, 8192]"] = (
+            "zz16", signals.TIERS["realistic"](64, 8192))
+        return out
+    out = {f"{f} signal [{B}, {N}]": (f, w4_rows(f, "signal"))
+           for f in W4_FLAVORS}
+    out[f"zz32 uniform [{B}, {N}]"] = ("zz32", w4_rows("zz32", "uniform"))
+    out["none32 codec2 [1, 4096]"] = ("none32", codec2_rows()[1])
+    return out
+
+
+def time_input(enc_fn, dec_fn, flavor: str, rows: np.ndarray,
+               flush) -> dict:
+    x = torch.from_numpy(rows).cuda()
+    lens = torch.full((rows.shape[0],), rows.shape[1], dtype=torch.int32,
+                      device=x.device)
+    keys, data, data_len = enc_fn(x, lens, flavor)
+    if not torch.equal(dec_fn(keys, data, lens, flavor), x):
+        raise SystemExit(f"{flavor} {tuple(rows.shape)}: round trip differs")
+    enc_bytes, dec_bytes = roofline.codec_bytes(x, keys, data_len)
+
+    def enc():
+        enc_fn(x, lens, flavor)
+
+    def dec():
+        dec_fn(keys, data, lens, flavor)
+
+    out = {}
+    for name, fn, nbytes in (("enc", enc, enc_bytes), ("dec", dec, dec_bytes)):
+        out[name + "_ms"] = profiling.cold_ms(fn, flush)
+        out[name + "_warm_ms"] = profiling.warm_ms(fn)
+        out[name + "_bound_ms"] = roofline.bound_ms(nbytes)
+    return out
+
+
+def profile_decode(flavor: str) -> dict:
+    """{kernel: {"launches", "us"}} over five decode calls of one flavor on
+    its [B, N] signal input: every kernel a call launches, fills included."""
+    x = torch.from_numpy(w4_rows(flavor, "signal")).cuda()
+    lens = torch.full((B,), N, dtype=torch.int32, device=x.device)
+    keys, data, _ = svb_w4.encode_w4_rows(x, lens, flavor)
+    svb_w4.decode_w4_rows(keys, data, lens, flavor)
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        for _ in range(5):
+            svb_w4.decode_w4_rows(keys, data, lens, flavor)
+    return {e.key: {"launches": e.count,
+                    "us": e.self_device_time_total / e.count}
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.count}
+
+
+def probe_turns(flush) -> dict:
+    """Each probe kernel and its library call in turns: every turn's cold
+    and warm ms, and the bound."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for shape in ((256, 128), (32768, 128)):
+        a = torch.from_numpy(rng.integers(0, 2, shape, dtype=np.int32)).cuda()
+        if not torch.equal(probes.prefix_sum(a), probes.prefix_sum_plain(a)):
+            raise SystemExit(f"prefix_sum {shape} differs from plain")
+        out[f"prefix_sum {list(shape)} vs cumsum"] = (
+            lambda a=a: probes.prefix_sum(a),
+            lambda a=a: torch.cumsum(a.view(-1), 0, dtype=torch.int32),
+            2 * a.numel() * 4)
+    nw = 128 * 32768
+    d32 = torch.from_numpy(rng.integers(0, 256, nw + 8192,
+                                        dtype=np.int32)).cuda()
+    dst = torch.empty(nw // 128, 128, dtype=torch.int32, device="cuda")
+    out["fetch_i32 128 x 32768 vs copy_"] = (
+        lambda: probes.fetch_i32(d32, nw),
+        lambda: dst.copy_(d32[:nw].view(-1, 128)), 8 * nw)
+    times = {}
+    for label, (kernel, library, nbytes) in out.items():
+        t = {"kernel_ms": [], "kernel_warm_ms": [], "library_ms": [],
+             "library_warm_ms": [], "bound_ms": roofline.bound_ms(nbytes)}
+        for _ in range(PROBE_TURNS):
+            for side, fn in (("kernel", kernel), ("library", library),
+                             ("library", library), ("kernel", kernel)):
+                t[side + "_ms"].append(profiling.cold_ms(fn, flush))
+                t[side + "_warm_ms"].append(profiling.warm_ms(fn))
+        times[label] = t
+    return times
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write the JSON result here")
+    ap.add_argument("--only", action="append",
+                    choices=("w2", "w4", "v1", "probe"),
+                    help="time only these groups (repeatable; default all)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device is visible")
+    groups = args.only or ["w2", "w4", "v1", "probe"]
+    smi = profiling.card()
+    print(smi)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    times = {}
+    for pair, enc_fn, dec_fn, e, d in (
+            ("w2", svb_w2.encode_w2_rows, svb_w2.decode_w2_rows, "E", "D"),
+            ("w4", svb_w4.encode_w4_rows, svb_w4.decode_w4_rows, "E4", "D4"),
+            ("v1", svb_v1.encode_v1_rows, svb_v1.decode_v1_rows, "V1E",
+             "V1D")):
+        if pair not in groups:
+            continue
+        for label, (flavor, rows) in inputs(pair).items():
+            times[f"{pair} {label}"] = t = time_input(enc_fn, dec_fn, flavor,
+                                                      rows, flush)
+            print(f"  {pair} {label:28s} {e} {t['enc_ms']:.4f} ms cold, "
+                  f"{t['enc_warm_ms']:.4f} warm, bound "
+                  f"{t['enc_bound_ms']:.4f}; {d} {t['dec_ms']:.4f} cold, "
+                  f"{t['dec_warm_ms']:.4f} warm, bound "
+                  f"{t['dec_bound_ms']:.4f}")
+    if "w4" in groups:
+        for flavor in ("zz32", "none16"):
+            times[f"w4 {flavor} decode profile"] = kernels = profile_decode(
+                flavor)
+            print(f"  D4 {flavor} under torch.profiler, per launch over 5 "
+                  "calls:")
+            for name, k in kernels.items():
+                print(f"    {k['launches']:3d} x {k['us']:8.2f} us  "
+                      f"{name[:90]}")
+    if "probe" in groups:
+        for label, t in probe_turns(flush).items():
+            times[label] = t
+            print(f"  {label:34s} kernel {min(t['kernel_ms']):.4f}-"
+                  f"{max(t['kernel_ms']):.4f} cold, "
+                  f"{min(t['kernel_warm_ms']):.4f}-"
+                  f"{max(t['kernel_warm_ms']):.4f} warm; library "
+                  f"{min(t['library_ms']):.4f}-{max(t['library_ms']):.4f} "
+                  f"cold, {min(t['library_warm_ms']):.4f}-"
+                  f"{max(t['library_warm_ms']):.4f} warm; bound "
+                  f"{t['bound_ms']:.5f}")
+    text = json.dumps({"card": smi, "times": times})
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
