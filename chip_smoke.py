@@ -20,11 +20,12 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      alignment, 20 repeated calls giving identical bytes;
      E4/D4 (W4) per flavor on [4, 4M] signal-like and uniform content, the
      code boundaries, the 32-bit wrap, ragged lengths and unlike rows, and
-     D4's look-back cases (signals.w4_tile_cases per flavor: lengths on
-     tile edges, all-code-0, all-code-3 and cycling rows, the int32 wrap
-     extremes, none16/none8 sign extremes; data rows cut short, outputs
-     at storage offsets off the 16-byte alignment, 20 repeated [4, 4M]
-     zz32 calls giving identical values);
+     the look-back cases of both (signals.w4_tile_cases per flavor: lengths
+     on tile edges, all-code-0, all-code-3 and cycling rows, the int32 wrap
+     extremes, none16/none8 sign extremes; data rows cut short, inputs and
+     outputs at storage offsets off the 16-byte alignment, 20 repeated
+     [4, 4M] E4 calls per flavor giving identical bytes and 20 D4 calls on
+     zz32 giving identical values);
      V1E/V1D (v1) per flavor on [4, 4M] int8, the odd-nibble input, ragged
      lengths and unlike rows;
   4. main paths: a 64-read corpus through vbz_compress_sized_batch /
@@ -391,13 +392,36 @@ def check_w2_lookback(port: Port, tile: int, rows: np.ndarray) -> None:
 
 def check_w4_lookback(port: Port, tile: int) -> None:
     """D4 on data rows cut shorter than the keys require, per flavor;
-    decoding into outputs that start 1-3 elements into their buffer (off
-    the 16-byte alignment); 20 calls on [4, 4M] zz32 giving the same
+    encoding inputs and decoding into outputs that start 1-3 elements into
+    their buffer (off the 16-byte alignment); 20 E4 calls on [4, 4M] of each
+    flavor giving the same bytes and 20 D4 calls on zz32 giving the same
     values: a look-back race would make them differ from call to call."""
     torch, w4 = port.torch, port.mods["w4"]
-    code3 = {c[1]: c[2:] for c in port.signals.w4_tile_cases(tile)
-             if c[0] == "all code 3"}
-    for flavor, (x, lens) in code3.items():
+    cases = {c[:2]: c[2:] for c in port.signals.w4_tile_cases(tile)}
+    flavors = ("zz32", "none32", "none16", "none8")
+    for flavor in flavors:
+        x, lens = cases[("tile edges", flavor)]
+        n = torch.from_numpy(lens).to(DEVICE)
+        x = torch.from_numpy(x).to(DEVICE)
+        k0, d0, l0 = w4.encode_w4_rows_plain(x, n, flavor)
+        written = torch.arange(d0.shape[1], device=DEVICE)[None] < l0[:, None]
+        want = torch.where(torch.arange(x.shape[1], device=DEVICE)[None]
+                           < n[:, None], x, 0)
+        for shift in (1, 2, 3):
+            keys, data, data_len = w4.encode_w4_rows(_shifted(x, shift), n,
+                                                     flavor)
+            same = (torch.equal(keys, k0) and torch.equal(data_len, l0)
+                    and torch.equal(torch.where(written, data, 0),
+                                    torch.where(written, d0, 0))
+                    and torch.equal(w4.decode_w4_rows(keys, data, n, flavor),
+                                    want))
+            if not same:
+                raise SystemExit(f"w4 {flavor}: E4 on an input {shift} "
+                                 "elements off its buffer's start differs "
+                                 "from plain")
+    print("  w4 inputs at storage offsets 1-3: E4 equals plain, every flavor")
+    for flavor in flavors:
+        x, lens = cases[("all code 3", flavor)]
         x = torch.from_numpy(x).to(DEVICE)
         n = torch.from_numpy(lens).to(DEVICE)
         keys, data, data_len = w4.encode_w4_rows(x, n, flavor)
@@ -416,15 +440,25 @@ def check_w4_lookback(port: Port, tile: int) -> None:
                                  "elements off its buffer's start differs")
     print("  w4 short data rows and outputs at storage offsets 1-3: D4 "
           "equals plain, every flavor")
-    x = torch.from_numpy(port.times.w4_rows("zz32", "signal")).to(DEVICE)
-    n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
-                   device=DEVICE)
-    keys, data, _ = w4.encode_w4_rows(x, n, "zz32")
-    for _ in range(20):
-        if not torch.equal(w4.decode_w4_rows(keys, data, n, "zz32"), x):
-            raise SystemExit("w4: a repeated D4 call gave other values")
-    print(f"  w4 repeats: 20 calls of D4 on {list(x.shape)} zz32 give "
-          "identical values")
+    for flavor in flavors:
+        x = torch.from_numpy(port.times.w4_rows(flavor, "signal")).to(DEVICE)
+        n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                       device=DEVICE)
+        keys, data, data_len = w4.encode_w4_rows(x, n, flavor)
+        written = (torch.arange(data.shape[1], device=DEVICE)[None]
+                   < data_len[:, None])
+        for _ in range(20):
+            k, d, l = w4.encode_w4_rows(x, n, flavor)
+            if not (torch.equal(k, keys) and torch.equal(l, data_len)
+                    and torch.equal(torch.where(written, d, 0),
+                                    torch.where(written, data, 0))):
+                raise SystemExit(f"w4 {flavor}: a repeated E4 call gave "
+                                 "other bytes")
+            if flavor == "zz32" and not torch.equal(
+                    w4.decode_w4_rows(keys, data, n, flavor), x):
+                raise SystemExit("w4: a repeated D4 call gave other values")
+    print(f"  w4 repeats: 20 calls of E4 on {list(x.shape)} of each flavor "
+          "give identical bytes, 20 of D4 on zz32 identical values")
 
 
 # ---------------------------------------------------------------------------

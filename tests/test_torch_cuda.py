@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: E/D (W2), E4/D4 (W4) and V1E/V1D
 (v1) against their plain PyTorch versions and, through the backend, against
-the port's NumPy oracle; the look-back across tiles of E/D and D4 (tile
+the port's NumPy oracle; the look-back across tiles of E/D and E4/D4 (tile
 edges, uniform codes, short data rows, views off alignment, repeated calls);
 the copy kernel CP and the capability probe's kernels against their plain
 versions, the prefix sum also on tile edges and in repeated calls. Exact.
@@ -191,7 +191,8 @@ def _w4_check(x, n, flavor):
 
 
 def _w4_tile_case(name: str, flavor: str, device):
-    """(rows, lens) of signals.w4_tile_cases at D4's tile, on the card."""
+    """(rows, lens) of signals.w4_tile_cases at the tile E4 and D4 share, on
+    the card."""
     cases = signals.w4_tile_cases(_build.lib("w4").vbz_w4_decode_tile())
     rows, lens = next(c[2:] for c in cases if c[:2] == (name, flavor))
     return torch.from_numpy(rows).to(device), torch.from_numpy(lens).to(device)
@@ -201,15 +202,35 @@ _W4_FLAVORS = ("zz32", "none32", "none16", "none8")
 
 
 @pytest.mark.cuda
+def test_w4_encode_and_decode_share_a_tile_on_card(cuda_device):
+    """E4 and D4 cut rows into the same tiles, so the tile-edge lengths of
+    signals.w4_tile_cases land on both kernels' edges."""
+    lib = _build.lib("w4")
+    assert lib.vbz_w4_encode_tile() == lib.vbz_w4_decode_tile() == 4096
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,flavor", [
     *((name, f) for name in ("tile edges", "all code 0", "all code 3",
                              "codes cycling") for f in _W4_FLAVORS),
     ("wrap extremes", "zz32"), ("negative", "none16"), ("negative", "none8")])
 def test_w4_lookback_cases_match_plain_on_card(cuda_device, name, flavor):
-    """Lengths on D4's tile edges (the row's last values share a thread
-    with values past the count), one-code and cycling rows, the int32 wrap
-    extremes, the none16/none8 sign extremes."""
+    """Lengths on E4's and D4's tile edges (the row's last values share a
+    thread with values past the length), one-code and cycling rows, the
+    int32 wrap extremes, the none16/none8 sign extremes."""
     _w4_check(*_w4_tile_case(name, flavor, cuda_device), flavor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,shift", [
+    (f, s) for f in _W4_FLAVORS for s in (1, 2, 3)])
+def test_w4_encode_views_off_alignment_on_card(cuda_device, flavor, shift):
+    """Inputs that are contiguous views 1-3 elements into their buffer
+    (int32 4-12 bytes, int16 2-6, int8 1-3 off a 16-byte boundary): E4 reads
+    them one value at a time, equals the plain version, and D4 gives them
+    back."""
+    x, n = _w4_tile_case("tile edges", flavor, cuda_device)
+    _w4_check(_shifted(x, shift), n, flavor)
 
 
 @pytest.mark.cuda
@@ -242,6 +263,27 @@ def test_w4_decode_into_views_off_alignment_on_card(cuda_device, flavor,
                                 n, flavor, out=out)
     assert got.data_ptr() == out.data_ptr()
     assert torch.equal(out, svb_w4.decode_w4_rows_plain(keys, data, n, flavor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", _W4_FLAVORS)
+def test_w4_encode_repeated_calls_give_identical_bytes_on_card(cuda_device,
+                                                               flavor):
+    """A look-back race shows as output that changes from call to call: 20
+    E4 calls on [4, 4M] of each flavor give the same keys, lengths and
+    written bytes, those of the plain version."""
+    x = torch.from_numpy(kernel_times.w4_rows(flavor, "signal")).to(
+        cuda_device)
+    n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                   device=cuda_device)
+    keys, data, data_len = _w4_check(x, n, flavor)
+    written = torch.arange(data.shape[1], device=cuda_device)[None] < \
+        data_len[:, None]
+    for _ in range(20):
+        k, d, l = svb_w4.encode_w4_rows(x, n, flavor)
+        assert torch.equal(k, keys) and torch.equal(l, data_len)
+        assert torch.equal(torch.where(written, d, 0),
+                           torch.where(written, data, 0))
 
 
 @pytest.mark.cuda
@@ -325,6 +367,23 @@ def test_prefix_sum_repeated_calls_on_card(cuda_device):
     want = probes.prefix_sum_plain(x)
     for _ in range(20):
         assert torch.equal(probes.prefix_sum(x), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4 * 128, 4096 * 128, (1 << 20) + 128,
+                               (1 << 20) + 1152])
+def test_fetch_i32_matches_plain_on_card(cuda_device, n):
+    """fetch_i32's grid covers its array at four int4s a thread (4096
+    values a block): under one block, 128 blocks, and one block past 256
+    whose threads have one int4 or none, or two or one. One launch each,
+    equal to the plain version."""
+    data = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31, n + 256,
+                                             dtype=np.int64)
+    data = torch.from_numpy(data.astype(np.int32)).to(cuda_device)
+    before = probes.LAUNCHES["fetch_i32"]
+    assert torch.equal(probes.fetch_i32(data, n),
+                       probes.fetch_i32_plain(data, n))
+    assert probes.LAUNCHES["fetch_i32"] == before + 1
 
 
 @pytest.mark.cuda

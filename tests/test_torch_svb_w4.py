@@ -6,7 +6,7 @@ mode, on that file's inputs (``test_pallas3_zz32``,
 ``test_pallas3_none16_sign_extends``, ``test_w4_dense_*``, and the
 ``_roundtrip`` inputs of ``pallas_codec2``) and on the content of
 ``signals.w4_tile_cases``, whose rows also go whole against the oracle at
-D4's tile; the port side runs the plain
+the tile E4 and D4 share; the port side runs the plain
 PyTorch version, which is what ``encode_w4_rows`` / ``decode_w4_rows`` do
 for CPU tensors. Every comparison is exact: the codec is an integer codec.
 The kernels themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
@@ -31,7 +31,7 @@ from vbz_compression_tpu_torch.ops import svb_w2, svb_w4
 _SIZE = {"zz32": 4, "none32": 4, "none16": 2, "none8": 1}
 _DTYPE = {"zz32": np.int32, "none32": np.int32, "none16": np.int16,
           "none8": np.int8}
-_TILE = 4096  # D4's tile on the card (vbz_w4_decode_tile)
+_TILE = 4096  # the tile E4 and D4 share on the card (vbz_w4_*_tile)
 # (name, flavor) of every case of signals.w4_tile_cases.
 _TILE_CASES = [(name, flavor)
                for name in ("tile edges", "all code 0", "all code 3",
@@ -143,9 +143,9 @@ def _tile_cases() -> dict:
 
 @pytest.mark.parametrize("name,flavor", _TILE_CASES)
 def test_tile_cases_match_oracle(name, flavor):
-    """Rows of signals.w4_tile_cases at D4's tile, whole: each row's stream
-    is the oracle's, and decode gives the row back and zeros past its
-    length."""
+    """Rows of signals.w4_tile_cases at E4's and D4's tile, whole: each
+    row's stream is the oracle's, and decode gives the row back and zeros
+    past its length."""
     rows, lens = _tile_cases()[(name, flavor)]
     lens = [int(n) for n in lens]
     streams, keys, data = _encode(rows, lens, flavor)
@@ -238,6 +238,35 @@ def test_ragged_rows_match_oracle(flavor, lens):
     for b, n in enumerate(lens):
         np.testing.assert_array_equal(out[b, :n], rows[b, :n])
         assert not out[b, n:].any()
+
+
+@pytest.mark.parametrize("flavor", list(_SIZE))
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_views_off_alignment_match_oracle(flavor, shift):
+    """Inputs that are contiguous views 1-3 elements into their buffer, the
+    ones E4 on the card reads one value at a time: every row's stream is the
+    oracle's, and decode gives the rows back."""
+    rng = np.random.default_rng(29 + shift)
+    dtype = _DTYPE[flavor]
+    info = np.iinfo(dtype)
+    rows = rng.integers(info.min, info.max, (3, 8200),
+                        dtype=np.int64).astype(dtype)
+    rows[0] = np.cumsum(rng.integers(-300, 300, 8200)).astype(dtype)
+    lens = [8200, 4097, 5]
+    buf = torch.empty(rows.size + shift, dtype=torch.from_numpy(rows).dtype)
+    x = buf[shift:].view(rows.shape)
+    x.copy_(torch.from_numpy(rows))
+    assert x.is_contiguous() and x.storage_offset() == shift
+    keys, data, dlen = svb_w4.encode_w4_rows(
+        x, torch.tensor(lens, dtype=torch.int32), flavor)
+    for b, n in enumerate(lens):
+        stream = (keys[b, :(n + 3) // 4].numpy().tobytes()
+                  + data[b, :int(dlen[b])].numpy().tobytes())
+        assert stream == oracle.svb_compress(
+            rows[b, :n], _SIZE[flavor], flavor == "zz32", 0), f"row {b}"
+    out = _decode(keys, data, lens, flavor)
+    for b, n in enumerate(lens):
+        np.testing.assert_array_equal(out[b, :n], rows[b, :n])
 
 
 def test_decode_stays_inside_data():

@@ -1,5 +1,5 @@
 // Decoupled look-back for the one-pass kernels (w2_codec.cu: E and D;
-// w4_codec.cu: D4; probe.cu: the prefix sum), sm_90a.
+// w4_codec.cu: E4 and D4; probe.cu: the prefix sum), sm_90a.
 //
 // Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
 // Look-back" (2016), written out by hand. A one-pass kernel carries a

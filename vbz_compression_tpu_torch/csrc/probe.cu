@@ -26,10 +26,11 @@
 // reread the array, which stays in L2 at the probe's size (270 KB at
 // int32), so its bound is its bytes in and out; its integer operations are
 // not counted (the data sheet gives no int32 rate), and at the probe's size
-// each stage takes a launch's latency. Design:
-// grid-stride loops, neighbouring threads on neighbouring elements, 16-byte
-// vectors where the layout allows. The prefix sum is one launch over tiles
-// of 256 threads x 16 values, one tile per block: four int4 loads per
+// each stage takes a launch's latency. Design: grid-stride loops,
+// neighbouring threads on neighbouring elements, 16-byte vectors where the
+// layout allows; fetch_i32's grid covers its array, four int4s a thread.
+// The prefix sum is one launch over tiles of 256 threads x 16 values, one
+// tile per block: four int4 loads per
 // thread, a serial scan in registers, row_scan.cuh's block scan, four int4
 // stores. Up to 8 tiles (the probe's [256, 128]) run as one thread block
 // cluster, whose blocks add the sums of the tiles before them from each
@@ -58,11 +59,21 @@ constexpr int kScanPer = 16;
 constexpr int kScanTile = kScanBlock * kScanPer;
 constexpr int kClusterTiles = 8;  // the portable cluster size
 constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks per SM of an H100
+constexpr long long kMaxCoverBlocks = 1LL << 20;  // copy.cu's kMaxGrid
+constexpr int kFetchVecs = 4;  // int4s a thread of fetch_i32 moves per pass
 
 unsigned grid_for(long long n) {
   const long long blocks = (n + kProbeThreads - 1) / kProbeThreads;
   return static_cast<unsigned>(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1)
                                                    : kMaxBlocks);
+}
+
+// A grid that covers n items at one per thread, as CP's does (copy.cu), up
+// to kMaxCoverBlocks blocks, striding beyond.
+unsigned grid_covering(long long n) {
+  const long long blocks = (n + kProbeThreads - 1) / kProbeThreads;
+  return static_cast<unsigned>(
+      blocks < kMaxCoverBlocks ? (blocks > 0 ? blocks : 1) : kMaxCoverBlocks);
 }
 
 __device__ __forceinline__ long long first_index() {
@@ -214,11 +225,25 @@ __global__ void unpack_keys(const uint8_t* __restrict__ keys,
   }
 }
 
-// out = data[:4 * nvec], int4 vectors.
+// out = data[:4 * nvec], int4 vectors: kFetchVecs a thread, the block's
+// threads side by side in each, all loads issued before the stores. On the
+// H100 one int4 a thread, over grid_for's grid or over one that covers the
+// array at 256-1024 threads a block, read 2-4% below copy_ at 16 MB; four
+// loads in flight a thread read faster than copy_ (PERF.md).
 __global__ void fetch_i32(const int4* __restrict__ data, int4* __restrict__ out,
                           long long nvec) {
-  for (long long v = first_index(); v < nvec; v += grid_stride()) {
-    out[v] = data[v];
+  const long long step = static_cast<long long>(kFetchVecs) * blockDim.x;
+  for (long long v = static_cast<long long>(blockIdx.x) * step + threadIdx.x;
+       v < nvec; v += step * gridDim.x) {
+    int4 a[kFetchVecs];
+#pragma unroll
+    for (int j = 0; j < kFetchVecs; ++j) {
+      if (v + j * blockDim.x < nvec) a[j] = data[v + j * blockDim.x];
+    }
+#pragma unroll
+    for (int j = 0; j < kFetchVecs; ++j) {
+      if (v + j * blockDim.x < nvec) out[v + j * blockDim.x] = a[j];
+    }
   }
 }
 
@@ -349,8 +374,11 @@ int vbz_probe_unpack_keys(const uint8_t* keys, int* codes, long long nkeys,
 // data, out 16-byte aligned; n % 4 == 0.
 int vbz_probe_fetch_i32(const void* data, int* out, long long n,
                         void* stream) {
-  VBZ_LAUNCH(fetch_i32, n / 4, static_cast<const int4*>(data),
-             reinterpret_cast<int4*>(out), n / 4);
+  const long long nvec = n / 4;
+  fetch_i32<<<grid_covering((nvec + kFetchVecs - 1) / kFetchVecs),
+              kProbeThreads, 0, VBZ_STREAM>>>(
+      static_cast<const int4*>(data), reinterpret_cast<int4*>(out), nvec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // data, out 16-byte aligned; n % 4 == 0.

@@ -1,8 +1,8 @@
 // Scans shared by the StreamVByte kernels (w2_codec.cu, w4_codec.cu,
 // v1_codec.cu) and the probe's prefix sum, sm_90a.
 //
-// block_exclusive_scan serves every kernel. The multi-pass kernels (E4,
-// V1E, V1D) split a batch of B rows into tiles of kTile values, four
+// block_exclusive_scan serves every kernel. The multi-pass kernels (V1E,
+// V1D) split a batch of B rows into tiles of kTile values, four
 // consecutive values (one key byte) per thread. The TPU kernels carried the
 // running byte offset and the un-delta sum from one grid step to the next;
 // CUDA blocks run in no order, so in these kernels each carry is a per-row

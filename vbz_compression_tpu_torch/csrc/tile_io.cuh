@@ -1,5 +1,5 @@
 // Tile loads, stores and staging shared by the one-pass StreamVByte kernels
-// (w2_codec.cu: E and D; w4_codec.cu: D4), sm_90a.
+// (w2_codec.cu: E and D; w4_codec.cu: E4 and D4), sm_90a.
 //
 // A one-pass kernel owns a tile of kThreads x kPerThread values of one row,
 // taken by the ticket of lookback.cuh. Each thread holds 16 consecutive
@@ -36,6 +36,52 @@ static __device__ __forceinline__ int lane_value(const uint32_t* w, int k) {
   using U = std::make_unsigned_t<X>;
   return static_cast<X>(static_cast<U>(
       w[k / kLanes<X>] >> (8 * sizeof(X) * (k % kLanes<X>))));
+}
+
+// Values i0..i0+15 of a row of N as packed words (0 past N). kAligned: the
+// tensor starts on a word of 4 values (16 bytes of int32, 8 of int16, 4 of
+// int8), and so does every row, since N % 4 == 0; whole runs of 16 then move
+// as 16-byte vectors where the address allows, else as such words.
+// Otherwise (a view at an odd storage offset), and at a row's end, one value
+// at a time. The launch picks kAligned from the tensor's address, so the
+// common case pays no check for the rare one.
+template <typename X, bool kAligned>
+static __device__ __forceinline__ void load_words(const X* row, int i0, int N,
+                                                  uint32_t w[kWords<X>]) {
+  const X* p = row + i0;
+  if (!kAligned || i0 + kPerThread > N) {
+    using U = std::make_unsigned_t<X>;
+#pragma unroll
+    for (int q = 0; q < kWords<X>; ++q) w[q] = 0;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (i0 + k < N) {
+        w[k / kLanes<X>] |= static_cast<uint32_t>(static_cast<U>(p[k]))
+                            << (8 * sizeof(X) * (k % kLanes<X>));
+      }
+    }
+  } else if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kWords<X> / 4; ++q) {
+      const uint4 a = reinterpret_cast<const uint4*>(p)[q];
+      w[4 * q] = a.x;
+      w[4 * q + 1] = a.y;
+      w[4 * q + 2] = a.z;
+      w[4 * q + 3] = a.w;
+    }
+  } else if constexpr (sizeof(X) == 2) {
+#pragma unroll
+    for (int q = 0; q < kWords<X> / 2; ++q) {
+      const uint2 a = reinterpret_cast<const uint2*>(p)[q];
+      w[2 * q] = a.x;
+      w[2 * q + 1] = a.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWords<X>; ++q) {
+      w[q] = reinterpret_cast<const uint32_t*>(p)[q];
+    }
+  }
 }
 
 // Stores packed words as values i0..i0+15 of a row of N (none past N).
@@ -93,6 +139,21 @@ static __device__ __forceinline__ uint32_t load_keys(const uint8_t* krow,
     if (i0 + 4 * j < N) key |= static_cast<uint32_t>(p[j]) << (8 * j);
   }
   return key;
+}
+
+// Stores the 4 key bytes of values i0..i0+15 (none past N), as load_keys
+// reads them.
+static __device__ __forceinline__ void store_keys(uint8_t* krow, int i0,
+                                                  int N, uint32_t key) {
+  uint8_t* p = krow + i0 / 4;
+  if (i0 + kPerThread <= N && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(p) = key;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (i0 + 4 * j < N) p[j] = static_cast<uint8_t>(key >> (8 * j));
+  }
 }
 
 // Moves the byte span [lo, hi) of device memory to (kToShared) or from the

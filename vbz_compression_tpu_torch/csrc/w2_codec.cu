@@ -67,67 +67,10 @@ using namespace vbz;
 // Blocks an SM holds at once: 8 x 256 threads caps registers at 32.
 constexpr int kMinBlocks = 8;
 // Staged data: at most 2 bytes per value, after up to 15 bytes that align
-// the shared buffer with the span's address mod 16.
+// the shared buffer with the span's address mod 16. D reads past the span
+// inside its buffer: one byte per value past the count and one ahead.
 constexpr int kStageBytes = 2 * kPassTile + 16;
-
-// Values i0..i0+15 of a row of N as packed words (0 past N). kAligned: the
-// tensor starts on a word of 4 values (8 bytes of int16, 4 of int8), and so
-// does every row, since N % 4 == 0; whole runs of 16 then move as 16-byte
-// vectors where the address allows, else as such words. Otherwise (a view
-// at an odd storage offset), and at a row's end, one value at a time. The
-// launch picks kAligned from the tensor's address, so the common case pays
-// no check for the rare one.
-template <typename X, bool kAligned>
-__device__ __forceinline__ void load_words(const X* row, int i0, int N,
-                                           uint32_t w[kWords<X>]) {
-  const X* p = row + i0;
-  if (!kAligned || i0 + kPerThread > N) {
-    using U = std::make_unsigned_t<X>;
-#pragma unroll
-    for (int q = 0; q < kWords<X>; ++q) w[q] = 0;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (i0 + k < N) {
-        w[k / kLanes<X>] |= static_cast<uint32_t>(static_cast<U>(p[k]))
-                            << (8 * sizeof(X) * (k % kLanes<X>));
-      }
-    }
-  } else if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-#pragma unroll
-    for (int q = 0; q < kWords<X> / 4; ++q) {
-      const uint4 a = reinterpret_cast<const uint4*>(p)[q];
-      w[4 * q] = a.x;
-      w[4 * q + 1] = a.y;
-      w[4 * q + 2] = a.z;
-      w[4 * q + 3] = a.w;
-    }
-  } else if constexpr (sizeof(X) == 2) {
-#pragma unroll
-    for (int q = 0; q < kWords<X> / 2; ++q) {
-      const uint2 a = reinterpret_cast<const uint2*>(p)[q];
-      w[2 * q] = a.x;
-      w[2 * q + 1] = a.y;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < kWords<X>; ++q) {
-      w[q] = reinterpret_cast<const uint32_t*>(p)[q];
-    }
-  }
-}
-
-__device__ __forceinline__ void store_keys(uint8_t* krow, int i0, int N,
-                                           uint32_t key) {
-  uint8_t* p = krow + i0 / 4;
-  if (i0 + kPerThread <= N && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
-    *reinterpret_cast<uint32_t*>(p) = key;
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (i0 + 4 * j < N) p[j] = static_cast<uint8_t>(key >> (8 * j));
-  }
-}
+constexpr int kStageBytesD = 2 * kPassTile + 48;
 
 // The zig-zag values of a thread's 16 values, two 16-bit halves per word
 // (value 2q in the low half of zz[q]); prev is the value before the first.
@@ -269,7 +212,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
               X* out, StatusWord* scratch, int N, int T, int D) {
   __shared__ uint32_t scan[kThreads / 32];
   __shared__ uint32_t tile_off, tile_carry;
-  __shared__ __align__(16) uint8_t stage[kStageBytes];
+  __shared__ __align__(16) uint8_t stage[kStageBytesD];
   int b, t;
   tile_of_ticket(take_ticket(scratch), T, &b, &t);
   const int base = t * kPassTile;
@@ -317,14 +260,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // low bits packed in w.
   const uint8_t* s = stage + (lo & 15);
   uint32_t o = in_tile, sum = 0;
-  if (live == kPerThread && avail == agg) {
-    // Every byte is there: read two and keep one for a 1-byte value (the
-    // second may be the next value's, or past the span inside the buffer).
+  if (avail == agg) {
+    // Every byte of the tile is there: read two and keep one for a 1-byte
+    // value, none for a value past the count (whose code is 0: o moves one
+    // byte past the span for each). The second byte may be the next value's,
+    // or past the span inside the buffer. The branch is the tile's, not the
+    // thread's: with a branch on the thread's live values as well, D gave
+    // values past the count that only its mask below hid, as D4 did.
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const uint32_t c = (two >> (2 * k)) & 1u;
-      const uint32_t z = (s[o] | (static_cast<uint32_t>(s[o + 1]) << 8)) &
-                         (0xFFu | (0xFF00u * c));
+      const uint32_t keep = k < live ? 0xFFu | (0xFF00u * c) : 0u;
+      const uint32_t z =
+          (s[o] | (static_cast<uint32_t>(s[o + 1]) << 8)) & keep;
       o += 1 + c;
       sum += (z >> 1) ^ (0u - (z & 1u));
       put_lane<X>(w, k, sum);

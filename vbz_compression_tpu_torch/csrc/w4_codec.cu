@@ -19,10 +19,17 @@
 //
 // What bounds them is bytes: 1-4 read per input value, 0.25 key bytes plus
 // 1-4 data bytes written (encode), the reverse on decode.
-//   E4: three launches, row_scan.cuh's structure: tile sizes -> per-row scan
-//       of the tiles' byte counts -> write pass, tiles of kTile values.
-//   D4: one launch with kernel D's design (w2_codec.cu): tiles of kPassTile
-//       values taken by ticket (lookback.cuh), one 32-bit key word per
+//   E4: one launch with kernel E's design (w2_codec.cu): tiles of kPassTile
+//       values taken by ticket (lookback.cuh), 16 values per thread loaded
+//       once with 16-byte vectors (zz32 takes the previous sample from the
+//       neighbouring thread through shared memory), codes and byte counts by
+//       popcount, a block scan, one 32-bit key store per thread, a look-back
+//       for the tile's byte offset, the thread's data bytes packed into
+//       aligned words in registers and staged in shared memory, and the
+//       tile's span stored with 16-byte vectors (each data byte belongs to
+//       one thread and one tile, so no atomics).
+//   D4: one launch with the same design: tiles by ticket, one 32-bit key
+//       word per
 //       thread and byte counts by popcount, a block scan and a look-back for
 //       the tile's byte offset, the span staged in shared memory (clipped at
 //       D) with 16-byte vectors, each value's 1 + code bytes taken through a
@@ -36,8 +43,8 @@
 // 0), decode data is [B, D] u8 for any D. Values at or past a row's length
 // take code 0, write no data, and decode to 0 (whatever their key bits
 // say); decode never reads a byte at or past D. Entry points launch on the
-// given stream, allocate nothing (the caller passes the scratch: E4's
-// [2, B, T] u32, D4's zeroed look-back state) and return cudaGetLastError().
+// given stream, allocate nothing (the caller passes the zeroed look-back
+// state) and return cudaGetLastError().
 
 #include <cstdint>
 #include <type_traits>
@@ -45,100 +52,157 @@
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
-#include "row_scan.cuh"
 #include "tile_io.cuh"
 
 namespace {
 
 using namespace vbz;
 
-// Value i of a row as the v0 stream stores it (x[-1] = 0 for zz32).
-template <typename X, bool kZigzag>
-__device__ __forceinline__ uint32_t w4_value(const X* row, int i) {
-  if constexpr (kZigzag) {
-    const uint32_t cur = static_cast<uint32_t>(row[i]);
-    const uint32_t prev = i > 0 ? static_cast<uint32_t>(row[i - 1]) : 0u;
-    const uint32_t d = cur - prev;  // wraps at 32 bits
-    return (d << 1) ^ static_cast<uint32_t>(static_cast<int32_t>(d) >> 31);
-  } else {
-    return static_cast<uint32_t>(static_cast<int32_t>(row[i]));  // sign-extend
-  }
-}
-
 __device__ __forceinline__ uint32_t w4_code(uint32_t v) {
   return (v > 0xFFu) + (v > 0xFFFFu) + (v > 0xFFFFFFu);
 }
 
-// Values i0..i0+3 of a row: stored values, codes, and their data bytes.
+// Blocks an SM holds at once for E4: 8 x 256 threads cap registers at 32
+// (spilling 8-28 bytes a thread); 4-7 blocks measured no faster (PERF.md).
+constexpr int kMinBlocksE4 = 8;
+// Staged data: at most 4 bytes per value, after up to 15 bytes that align
+// the shared buffer with the span's address mod 16.
+constexpr int kStageBytesE4 = 4 * kPassTile + 16;
+
+// Value k of a thread's 16 as the stream stores it: zz32's words hold the
+// zig-zag values already, the none flavors' their packed input, which is
+// sign-extended here.
 template <typename X, bool kZigzag>
-__device__ __forceinline__ uint32_t encode_quad(const X* row, int i0, int len,
-                                                uint32_t v[4], uint32_t c[4]) {
-  uint32_t bytes = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[k] = 0;
-    c[k] = 0;
-    if (i0 + k < len) {
-      v[k] = w4_value<X, kZigzag>(row, i0 + k);
-      c[k] = w4_code(v[k]);
-      bytes += 1 + c[k];
-    }
+__device__ __forceinline__ uint32_t stored_value(const uint32_t* w, int k) {
+  if constexpr (kZigzag) {
+    return w[k];
+  } else {
+    return static_cast<uint32_t>(lane_value<X>(w, k));
   }
-  return bytes;
 }
 
+// Writes a thread's data bytes into the staging buffer from byte pos on:
+// value k's low 1 + code bytes, none for values at or past the row's length
+// (whose code is 0). A value's bytes above its code are 0, so the bytes are
+// packed into aligned words in registers by shifts alone; each whole word is
+// one 32-bit store, and the partial words at either end, which the
+// neighbouring threads share, are stored byte by byte. Storing every value's
+// 4 bytes one by one, the later values overwriting the extra ones, measured
+// up to 2.4x slower (PERF.md).
 template <typename X, bool kZigzag>
-__global__ void encode_sizes(const X* x, const int* lens, uint32_t* tile_bytes,
-                             int N, int T) {
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int len = clamp_len(lens[b], N);
-  uint32_t* out = tile_bytes + static_cast<size_t>(b) * T + blockIdx.x;
-  if (base >= len) {
-    if (threadIdx.x == 0) *out = 0;
-    return;
-  }
-  uint32_t v[4], c[4];
-  const uint32_t bytes = encode_quad<X, kZigzag>(
-      x + static_cast<size_t>(b) * N, base + 4 * threadIdx.x, len, v, c);
-  uint32_t total;
-  block_exclusive_scan<kThreads>(bytes, &total, smem);
-  if (threadIdx.x == 0) *out = total;
-}
-
-template <typename X, bool kZigzag>
-__global__ void encode_write(const X* x, const int* lens,
-                             const uint32_t* tile_off, uint8_t* keys,
-                             uint8_t* data, int N, int T) {
-  __shared__ uint32_t smem[kThreads / 32];
-  const int b = blockIdx.y;
-  const int base = blockIdx.x * kTile;
-  const int len = clamp_len(lens[b], N);
-  const int i0 = base + 4 * threadIdx.x;
-  uint8_t* krow = keys + static_cast<size_t>(b) * (N / 4);
-  if (base >= len) {
-    if (i0 < N) krow[i0 / 4] = 0;
-    return;
-  }
-  uint32_t v[4], c[4];
-  const uint32_t bytes =
-      encode_quad<X, kZigzag>(x + static_cast<size_t>(b) * N, i0, len, v, c);
-  if (i0 < N) {
-    krow[i0 / 4] = static_cast<uint8_t>(c[0] | (c[1] << 2) | (c[2] << 4) |
-                                        (c[3] << 6));
-  }
-  uint32_t total;
-  uint32_t o = tile_off[static_cast<size_t>(b) * T + blockIdx.x] +
-               block_exclusive_scan<kThreads>(bytes, &total, smem);
-  uint8_t* drow = data + static_cast<size_t>(b) * 4 * N;
+__device__ __forceinline__ void stage_values(uint8_t* stage, uint32_t pos,
+                                             const uint32_t* w, uint32_t code,
+                                             int live) {
+  uint32_t* s32 = reinterpret_cast<uint32_t*>(stage);
+  uint32_t wi = pos >> 2;
+  uint32_t head = pos & 3u;  // bytes of word wi before the thread's first
+  uint32_t fill = head;      // bytes of word wi taken, < 4
+  uint32_t cur = 0;          // word wi's bytes from this thread
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (i0 + k < len) {
-      for (uint32_t j = 0; j <= c[k]; ++j) {
-        drow[o++] = static_cast<uint8_t>(v[k] >> (8 * j));
+  for (int k = 0; k < kPerThread; ++k) {
+    const bool on = k < live;
+    const uint32_t v = on ? stored_value<X, kZigzag>(w, k) : 0u;
+    const uint32_t n = on ? 1u + ((code >> (2 * k)) & 3u) : 0u;
+    const uint32_t low = cur | (v << (8 * fill));
+    const uint32_t high = __funnelshift_l(v, 0u, 8 * fill);  // 0 for fill 0
+    fill += n;
+    if (fill >= 4) {  // word wi is complete: at most one per value
+      if (head == 0) {
+        s32[wi] = low;
+      } else {
+#pragma unroll
+        for (uint32_t j = 1; j < 4; ++j) {
+          if (j >= head) {
+            stage[4 * wi + j] = static_cast<uint8_t>(low >> (8 * j));
+          }
+        }
+        head = 0;
       }
+      ++wi;
+      fill -= 4;
+      cur = high;
+    } else {
+      cur = low;
     }
+  }
+#pragma unroll
+  for (uint32_t j = 0; j < 3; ++j) {
+    if (j >= head && j < fill) {
+      stage[4 * wi + j] = static_cast<uint8_t>(cur >> (8 * j));
+    }
+  }
+}
+
+template <typename X, bool kZigzag, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocksE4)
+    encode_w4(const X* x, const int* lens, uint8_t* keys, uint8_t* data,
+              int* data_len, StatusWord* scratch, int N, int T) {
+  static_assert(!kZigzag || sizeof(X) == 4, "zz32 encodes int32");
+  __shared__ uint32_t scan[kThreads / 32];
+  __shared__ uint32_t last[kZigzag ? kThreads : 1];
+  __shared__ uint32_t tile_off;
+  __shared__ __align__(16) uint8_t stage[kStageBytesE4];
+  int b, t;
+  tile_of_ticket(take_ticket(scratch), T, &b, &t);
+  const int base = t * kPassTile;
+  const int len = clamp_len(lens[b], N);
+  const int i0 = base + kPerThread * threadIdx.x;
+  uint8_t* krow = keys + static_cast<size_t>(b) * (N / 4);
+  StatusWord* status = scratch + kLookbackHeader + static_cast<size_t>(b) * T;
+  if (base >= len) {  // past the row's length: zero keys, no data
+    store_keys(krow, i0, N, 0u);
+    if (threadIdx.x == 0) {
+      publish_status(status + t, kStatusAggregate, 0u);
+      if (t == 0) data_len[b] = 0;
+    }
+    return;
+  }
+  const X* row = x + static_cast<size_t>(b) * N;
+  uint32_t w[kWords<X>];
+  load_words<X, kAligned>(row, i0, N, w);
+  if constexpr (kZigzag) {
+    // The previous sample: the neighbouring thread's last, the tile's
+    // predecessor in the row, or 0 at the row's start.
+    last[threadIdx.x] = w[kPerThread - 1];
+    __syncthreads();
+    uint32_t prev = threadIdx.x > 0 ? last[threadIdx.x - 1]
+                    : (base > 0 ? static_cast<uint32_t>(row[base - 1]) : 0u);
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const uint32_t d = w[k] - prev;  // wraps at 32 bits
+      prev = w[k];
+      w[k] = (d << 1) ^ static_cast<uint32_t>(static_cast<int32_t>(d) >> 31);
+    }
+  }
+  // Value k's code at bits 2k, 0 for the values at or past the length.
+  const int live = live_values(len, i0);
+  uint32_t code = 0;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    code |= w4_code(stored_value<X, kZigzag>(w, k)) << (2 * k);
+  }
+  code &= live_key_mask(live);
+  uint32_t agg;
+  const uint32_t in_tile = block_exclusive_scan<kThreads>(
+      static_cast<uint32_t>(live) + __popc(code & 0x55555555u) +
+          2u * __popc(code & 0xAAAAAAAAu),
+      &agg, scan);
+  if (threadIdx.x == 0) publish_aggregate(status, t, agg);
+  store_keys(krow, i0, N, code);
+  if (threadIdx.x < 32) {
+    const uint32_t off = resolve_prefix(status, t, agg);
+    if (threadIdx.x == 0) tile_off = off;
+  }
+  __syncthreads();
+  const uint32_t off = tile_off;
+  const uintptr_t lo =
+      reinterpret_cast<uintptr_t>(data + static_cast<size_t>(b) * 4 * N + off);
+  stage_values<X, kZigzag>(stage, static_cast<uint32_t>(lo & 15) + in_tile, w,
+                           code, live);
+  __syncthreads();
+  move_span<false>(stage, lo, lo + agg);
+  if (threadIdx.x == 0 && t == (len - 1) / kPassTile) {
+    data_len[b] = static_cast<int>(off + agg);
   }
 }
 
@@ -294,24 +358,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksD4)
 
 template <typename X, bool kZigzag>
 int encode_launch(const void* x, const int* lens, uint8_t* keys,
-                  uint8_t* data, int* data_len, uint32_t* scratch, int B,
+                  uint8_t* data, int* data_len, StatusWord* scratch, int B,
                   int N, cudaStream_t s) {
-  const int T = (N + kTile - 1) / kTile;
-  const dim3 grid(T, B);
-  const size_t bt = static_cast<size_t>(B) * T;
-  uint32_t* tile_bytes = scratch;
-  uint32_t* tile_off = scratch + bt;
-  const X* xt = static_cast<const X*>(x);
-  encode_sizes<X, kZigzag><<<grid, kThreads, 0, s>>>(xt, lens, tile_bytes, N,
-                                                     T);
-  int err = cudaGetLastError();
-  if (err != 0) return err;
-  row_exclusive_scan<<<B, kScanThreads, 0, s>>>(
-      tile_bytes, tile_off, reinterpret_cast<uint32_t*>(data_len), T);
-  err = cudaGetLastError();
-  if (err != 0) return err;
-  encode_write<X, kZigzag><<<grid, kThreads, 0, s>>>(xt, lens, tile_off, keys,
-                                                     data, N, T);
+  const int tiles = grid_tiles(B, N);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = word_aligned<X>(x) ? encode_w4<X, kZigzag, true>
+                                         : encode_w4<X, kZigzag, false>;
+  kernel<<<tiles, kThreads, 0, s>>>(static_cast<const X*>(x), lens, keys,
+                                    data, data_len, scratch, N, tiles / B);
   return cudaGetLastError();
 }
 
@@ -332,19 +386,18 @@ int decode_launch(const uint8_t* keys, const uint8_t* data, const int* counts,
 
 extern "C" {
 
-// Values per tile of E4: its scratch is [2, B, ceil(N / tile)] u32.
-int vbz_w4_encode_tile() { return kTile; }
-
-// Values per tile of D4, T = ceil(N / tile) tiles per row: its scratch is
-// 8-byte words, zeroed before each call, 1 + 2 * B * T for zz32 (the byte
-// offset and the un-delta sum), 1 + B * T for the none flavors.
+// Values per tile of E4 and of D4, T = ceil(N / tile) tiles per row. Their
+// scratch is 8-byte words, zeroed before each call: E4's 1 + B * T (the
+// byte offset); D4's 1 + 2 * B * T for zz32 (the byte offset and the
+// un-delta sum), 1 + B * T for the none flavors.
+int vbz_w4_encode_tile() { return kPassTile; }
 int vbz_w4_decode_tile() { return kPassTile; }
 
 // x: [B, N] int32 (elem_bytes 4; zz32 with zigzag 1, none32 with 0), int16
 // (elem_bytes 2, none16) or int8 (elem_bytes 1, none8); lens: [B] i32.
 // Writes keys [B, N/4], data [B, 4N], data_len [B] i32.
 int vbz_w4_encode(const void* x, const int* lens, uint8_t* keys,
-                  uint8_t* data, int* data_len, uint32_t* scratch, int B,
+                  uint8_t* data, int* data_len, StatusWord* scratch, int B,
                   int N, int elem_bytes, int zigzag, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (elem_bytes == 4 && zigzag) {

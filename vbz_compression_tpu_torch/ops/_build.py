@@ -48,8 +48,8 @@ _SIGNATURES = {
     "w4": {
         "vbz_w4_encode_tile": [],
         "vbz_w4_decode_tile": [],
-        # x, lens, keys, data, data_len, scratch ([2, B, T] u32), B, N,
-        # elem_bytes, zigzag, stream
+        # x, lens, keys, data, data_len, scratch (zeroed look-back state),
+        # B, N, elem_bytes, zigzag, stream
         "vbz_w4_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # keys, data, counts, out, scratch (zeroed look-back state), B, N,
         # D, elem_bytes, zigzag, stream

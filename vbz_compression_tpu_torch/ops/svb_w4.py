@@ -21,14 +21,16 @@ output width (the none flavors).
 
 What bounds the kernels is bytes: 1-4 read per input value, 0.25 key bytes
 plus 1-4 data bytes written, the reverse on decode; there is no arithmetic
-to speak of. E4 is three launches: tile byte counts, a per-row scan of
-them, and a write pass, four values per thread. D4 is one launch, as kernel
-D of ``svb_w2`` is: a block owns a tile of 4096 values (16 per thread: one
-32-bit key word), takes it from an atomic ticket, gets the row's byte offset
-(and, for zz32, the un-delta sum) of the tiles before it by a decoupled
-look-back (``csrc/lookback.cuh``), stages the tile's data span in shared
-memory with 16-byte vectors, and writes its output once. The wrapper zeroes
-the look-back state (one fill) before each D4 launch.
+to speak of. So each is one launch in which every byte crosses device
+memory once, as kernels E and D of ``svb_w2`` are: a block owns a tile of
+4096 values (16 per thread: one 32-bit key word), takes it from an atomic
+ticket, gets the row's byte offset (and, in D4 for zz32, the un-delta sum)
+of the tiles before it by a decoupled look-back (``csrc/lookback.cuh``),
+and moves the tile's data span between device memory and shared memory
+with 16-byte vectors. E4 reads its input once, packs each thread's data
+bytes into aligned words in registers and stages them; D4 stages the span
+and writes its output once. The wrapper zeroes the look-back state (one
+fill) before each launch.
 
 Layouts (B rows, N values per row, N % 4 == 0):
     encode_w4_rows(x [B,N] i32|i16|i8, lens [B] i32)
@@ -55,8 +57,7 @@ from . import _rows
 FLAVOR_DTYPES = {"zz32": torch.int32, "none32": torch.int32,
                  "none16": torch.int16, "none8": torch.int8}
 
-# Launches, one per wrapper call that reached the card (E4: a sequence of
-# three kernels; D4: one kernel).
+# Kernel launches, one per wrapper call that reached the card.
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 
@@ -108,14 +109,14 @@ def encode_w4_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
     _rows.check_kernel_args(B, N, _MAX_N, x, lens)
     keys = torch.empty(B, N // 4, dtype=torch.uint8, device=x.device)
     data = torch.empty(B, 4 * N, dtype=torch.uint8, device=x.device)
-    data_len = torch.zeros(B, dtype=torch.int32, device=x.device)
     if B == 0 or N == 0:
-        return keys, data, data_len
+        return keys, data, torch.zeros(B, dtype=torch.int32, device=x.device)
+    data_len = torch.empty(B, dtype=torch.int32, device=x.device)
     from . import _build
 
     lib = _build.lib("w4")
-    tiles = -(-N // lib.vbz_w4_encode_tile())
-    scratch = torch.empty(2, B, tiles, dtype=torch.int32, device=x.device)
+    scratch = _rows.lookback_scratch(lib.vbz_w4_encode_tile(), B, N, 1,
+                                     x.device)
     _rows.launch(lib.vbz_w4_encode, "W4 encode", x, lens, keys, data,
                  data_len, scratch, B, N, x.element_size(),
                  int(flavor == "zz32"))

@@ -27,15 +27,15 @@ Inputs, made from seeds with numpy:
   int8 [4, 4M];
 - probe: ``prefix_sum`` on [256, 128] (the capability probe's input) and
   [32768, 128] int32 beside ``torch.cumsum``, ``fetch_i32`` on 128 x 32768
-  int32 beside ``copy_``, in turns (kernel, library, library, kernel, three
+  int32 beside ``copy_``, in turns (kernel, library, library, kernel, six
   times), each turn one call with the L2 flushed and ten back to back.
 For the codec inputs and each direction: one call with the L2 flushed and
 ten back to back, each the best of three (``profiling``'s ``cold_ms`` and
 ``warm_ms``), and the bound (the bytes the call must move at the data
 sheet's 3.35 TB/s). The w4 group also lists what ``torch.profiler`` sees of
-five decode calls on zz32 and none16 signal: each kernel's name, launches
-and device us per launch. Prints the card's name and power limit, then one
-JSON object.
+five encode calls and five decode calls on zz32 and none16 signal: each
+kernel's name, launches and device us per launch. Prints the card's name and
+power limit, then one JSON object.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ from vbz_compression_tpu_torch.utils import profiling, roofline
 
 B, N = 4, 4 << 20
 FLUSH_BYTES = 256 << 20
-PROBE_TURNS = 3   # rounds of kernel, library, library, kernel
+PROBE_TURNS = 6   # rounds of kernel, library, library, kernel
 W4_FLAVORS = ("zz32", "none32", "none16", "none8")
 W4_DTYPES = {"zz32": np.int32, "none32": np.int32, "none16": np.int16,
              "none8": np.int8}
@@ -130,17 +130,24 @@ def time_input(enc_fn, dec_fn, flavor: str, rows: np.ndarray,
     return out
 
 
-def profile_decode(flavor: str) -> dict:
-    """{kernel: {"launches", "us"}} over five decode calls of one flavor on
-    its [B, N] signal input: every kernel a call launches, fills included."""
+def profile(flavor: str, direction: str) -> dict:
+    """{kernel: {"launches", "us"}} over five calls of one direction
+    ("encode" or "decode") of one flavor on its [B, N] signal input: every
+    kernel a call launches, fills included."""
     x = torch.from_numpy(w4_rows(flavor, "signal")).cuda()
     lens = torch.full((B,), N, dtype=torch.int32, device=x.device)
     keys, data, _ = svb_w4.encode_w4_rows(x, lens, flavor)
-    svb_w4.decode_w4_rows(keys, data, lens, flavor)
+    if direction == "encode":
+        def call():
+            svb_w4.encode_w4_rows(x, lens, flavor)
+    else:
+        def call():
+            svb_w4.decode_w4_rows(keys, data, lens, flavor)
+    call()
     torch.cuda.synchronize()
     with profiling.trace() as prof:
         for _ in range(5):
-            svb_w4.decode_w4_rows(keys, data, lens, flavor)
+            call()
     return {e.key: {"launches": e.count,
                     "us": e.self_device_time_total / e.count}
             for e in prof.key_averages()
@@ -211,13 +218,14 @@ def main() -> int:
                   f"{t['dec_bound_ms']:.4f}")
     if "w4" in groups:
         for flavor in ("zz32", "none16"):
-            times[f"w4 {flavor} decode profile"] = kernels = profile_decode(
-                flavor)
-            print(f"  D4 {flavor} under torch.profiler, per launch over 5 "
-                  "calls:")
-            for name, k in kernels.items():
-                print(f"    {k['launches']:3d} x {k['us']:8.2f} us  "
-                      f"{name[:90]}")
+            for direction, kernel in (("encode", "E4"), ("decode", "D4")):
+                times[f"w4 {flavor} {direction} profile"] = kernels = profile(
+                    flavor, direction)
+                print(f"  {kernel} {flavor} under torch.profiler, per launch "
+                      "over 5 calls:")
+                for name, k in kernels.items():
+                    print(f"    {k['launches']:3d} x {k['us']:8.2f} us  "
+                          f"{name[:90]}")
     if "probe" in groups:
         for label, t in probe_turns(flush).items():
             times[label] = t
