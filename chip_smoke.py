@@ -27,7 +27,12 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      [4, 4M] E4 calls per flavor giving identical bytes and 20 D4 calls on
      zz32 giving identical values);
      V1E/V1D (v1) per flavor on [4, 4M] int8, the odd-nibble input, ragged
-     lengths and unlike rows;
+     lengths and unlike rows, and the look-back cases of both
+     (signals.v1_tile_cases per flavor: lengths on tile edges, all-code-0,
+     all-code-3 and cycling rows, odd nibble offsets carried across empty
+     tiles, the none8 sign and zz8 delta extremes; data rows cut short,
+     inputs at storage offsets 1-3, 20 repeated [4, 4M] V1E and V1D calls
+     per flavor giving identical bytes and values);
   4. main paths: a 64-read corpus through vbz_compress_sized_batch /
      vbz_decompress_sized_batch at each option set of MAIN_PATHS, every frame
      identical to the oracle's and every read round-tripped; each path's
@@ -237,6 +242,9 @@ def new_cases(port: Port, sig) -> list:
     cases = [(name, "w4", flavor, rows, lens)
              for name, flavor, rows, lens in sig.w4_tile_cases(
                  port.build.lib("w4").vbz_w4_decode_tile())]
+    cases += [(name, "v1", flavor, rows, lens)
+              for name, flavor, rows, lens in sig.v1_tile_cases(
+                  port.build.lib("v1").vbz_v1_decode_tile())]
     for flavor in ("zz32", "none32", "none16", "none8"):
         for content in ("signal", "uniform"):
             rows = port.times.w4_rows(flavor, content)
@@ -459,6 +467,73 @@ def check_w4_lookback(port: Port, tile: int) -> None:
                 raise SystemExit("w4: a repeated D4 call gave other values")
     print(f"  w4 repeats: 20 calls of E4 on {list(x.shape)} of each flavor "
           "give identical bytes, 20 of D4 on zz32 identical values")
+
+
+def check_v1_lookback(port: Port, tile: int) -> None:
+    """V1E and V1D on inputs that start 1-3 bytes into their buffer (off
+    the 16-byte alignment), with keys and data at the same shift; V1D on
+    data rows cut shorter than the keys require, per flavor; 20 V1E and V1D
+    calls on [4, 4M] int8 walks of each flavor giving the same bytes and
+    values: a race in the look-back, or in the half-byte it carries, would
+    make them differ from call to call."""
+    torch, v1 = port.torch, port.mods["v1"]
+    cases = {c[:2]: c[2:] for c in port.signals.v1_tile_cases(tile)}
+    flavors = ("zz8", "none8")
+    for flavor in flavors:
+        x, lens = cases[("tile edges", flavor)]
+        n = torch.from_numpy(lens).to(DEVICE)
+        x = torch.from_numpy(x).to(DEVICE)
+        k0, d0, l0 = v1.encode_v1_rows_plain(x, n, flavor)
+        written = torch.arange(d0.shape[1], device=DEVICE)[None] < l0[:, None]
+        want = torch.where(torch.arange(x.shape[1], device=DEVICE)[None]
+                           < n[:, None], x, 0)
+        for shift in (1, 2, 3):
+            keys, data, data_len = v1.encode_v1_rows(_shifted(x, shift), n,
+                                                     flavor)
+            same = (torch.equal(keys, k0) and torch.equal(data_len, l0)
+                    and torch.equal(torch.where(written, data, 0),
+                                    torch.where(written, d0, 0))
+                    and torch.equal(v1.decode_v1_rows(
+                        _shifted(keys, shift), _shifted(data, shift), n,
+                        flavor), want))
+            if not same:
+                raise SystemExit(f"v1 {flavor}: V1E or V1D on views {shift} "
+                                 "bytes off their buffer's start differs "
+                                 "from plain")
+    print("  v1 views at storage offsets 1-3: V1E and V1D equal plain, both "
+          "flavors")
+    for flavor in flavors:
+        x, lens = cases[("all code 3", flavor)]
+        n = torch.from_numpy(lens).to(DEVICE)
+        keys, data, data_len = v1.encode_v1_rows(torch.from_numpy(x).to(
+            DEVICE), n, flavor)
+        for D in (1, tile - 1, int(data_len.min()) - 3):
+            short = data[:, :D].contiguous()
+            if not torch.equal(v1.decode_v1_rows(keys, short, n, flavor),
+                               v1.decode_v1_rows_plain(keys, short, n,
+                                                       flavor)):
+                raise SystemExit(f"v1 {flavor}: V1D differs from plain on a "
+                                 f"data row cut at {D} bytes")
+    print("  v1 short data rows: V1D equals plain at every cut, both flavors")
+    x = torch.from_numpy(port.times.walk8()).to(DEVICE)
+    n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                   device=DEVICE)
+    for flavor in flavors:
+        keys, data, data_len = v1.encode_v1_rows(x, n, flavor)
+        written = (torch.arange(data.shape[1], device=DEVICE)[None]
+                   < data_len[:, None])
+        for _ in range(20):
+            k, d, l = v1.encode_v1_rows(x, n, flavor)
+            if not (torch.equal(k, keys) and torch.equal(l, data_len)
+                    and torch.equal(torch.where(written, d, 0),
+                                    torch.where(written, data, 0))):
+                raise SystemExit(f"v1 {flavor}: a repeated V1E call gave "
+                                 "other bytes")
+            if not torch.equal(v1.decode_v1_rows(keys, data, n, flavor), x):
+                raise SystemExit(f"v1 {flavor}: a repeated V1D call gave "
+                                 "other values")
+    print(f"  v1 repeats: 20 calls of V1E and V1D on {list(x.shape)} of each "
+          "flavor give identical bytes and values")
 
 
 # ---------------------------------------------------------------------------
@@ -690,6 +765,7 @@ def main() -> int:
                         + new_cases(port, sig))
     check_w2_lookback(port, tile, tier_rows["realistic"])
     check_w4_lookback(port, port.build.lib("w4").vbz_w4_decode_tile())
+    check_v1_lookback(port, port.build.lib("v1").vbz_v1_decode_tile())
     lap("3 kernels")
 
     # Phase 4: the main paths.
@@ -711,8 +787,7 @@ def main() -> int:
     for flavor in ("zz32", "none32", "none16", "none8"):
         inputs[f"w4 {flavor} signal"] = port.times.w4_rows(flavor, "signal")
     inputs["w4 zz32 uniform"] = port.times.w4_rows("zz32", "uniform")
-    walk8 = np.stack([sig.int8_walk(np.random.default_rng(b), N)
-                      for b in range(B)])
+    walk8 = port.times.walk8()
     inputs["v1 zz8 signal"] = inputs["v1 none8 signal"] = walk8
     inputs["w2 zz8 signal"] = walk8
     inputs["v1 zz8 uniform"] = sig.uniform(np.random.default_rng(9), B * N,

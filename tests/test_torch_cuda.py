@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: E/D (W2), E4/D4 (W4) and V1E/V1D
 (v1) against their plain PyTorch versions and, through the backend, against
-the port's NumPy oracle; the look-back across tiles of E/D and E4/D4 (tile
-edges, uniform codes, short data rows, views off alignment, repeated calls);
+the port's NumPy oracle; the look-back across tiles of E/D, E4/D4 and
+V1E/V1D (tile edges, uniform codes, V1E's half-byte carried across empty
+tiles, short data rows, views off alignment, repeated calls);
 the copy kernel CP and the capability probe's kernels against their plain
 versions, the prefix sum also on tile edges and in repeated calls. Exact.
 
@@ -297,6 +298,113 @@ def test_w4_repeated_calls_give_identical_values_on_card(cuda_device):
     keys, data, _ = _w4_check(x, n, "zz32")
     for _ in range(20):
         assert torch.equal(svb_w4.decode_w4_rows(keys, data, n, "zz32"), x)
+
+
+def _v1_check(x, n, flavor):
+    """V1E and V1D against their plain versions on x [B, N] with lengths n,
+    bit for bit, and each row's stream against the oracle's; returns V1E's
+    outputs."""
+    k1, d1, l1 = svb_v1.encode_v1_rows(x, n, flavor)
+    k0, d0, l0 = svb_v1.encode_v1_rows_plain(x, n, flavor)
+    assert torch.equal(k1, k0) and torch.equal(l1, l0)
+    written = torch.arange(d0.shape[1], device=x.device)[None] < l0[:, None]
+    assert torch.equal(torch.where(written, d1, 0),
+                       torch.where(written, d0, 0))
+    o1 = svb_v1.decode_v1_rows(k1, d1, n, flavor)
+    assert torch.equal(o1, svb_v1.decode_v1_rows_plain(k1, d1, n, flavor))
+    valid = torch.arange(x.shape[1], device=x.device)[None] < n[:, None]
+    assert torch.equal(o1, torch.where(valid, x, 0))
+    rows, keys, data = x.cpu().numpy(), k1.cpu().numpy(), d1.cpu().numpy()
+    for b, cnt in enumerate(n.tolist()):
+        stream = (keys[b, :(cnt + 3) // 4].tobytes()
+                  + data[b, :int(l1[b])].tobytes())
+        assert stream == oracle.svb_compress(rows[b, :cnt], 1,
+                                             flavor == "zz8", 1), f"row {b}"
+    return k1, d1, l1
+
+
+def _v1_tile_case(name: str, flavor: str, device):
+    """(rows, lens) of signals.v1_tile_cases at the tile V1E and V1D share,
+    on the card."""
+    cases = signals.v1_tile_cases(_build.lib("v1").vbz_v1_decode_tile())
+    rows, lens = next(c[2:] for c in cases if c[:2] == (name, flavor))
+    return torch.from_numpy(rows).to(device), torch.from_numpy(lens).to(device)
+
+
+@pytest.mark.cuda
+def test_v1_encode_and_decode_share_a_tile_on_card(cuda_device):
+    """V1E and V1D cut rows into the same tiles, so the tile-edge lengths of
+    signals.v1_tile_cases land on both kernels' edges."""
+    lib = _build.lib("v1")
+    assert lib.vbz_v1_encode_tile() == lib.vbz_v1_decode_tile() == 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,flavor", [
+    *((name, f) for name in ("tile edges", "all code 0", "all code 3",
+                             "codes cycling",
+                             "odd offsets across empty tiles")
+      for f in ("zz8", "none8")),
+    ("negative", "none8"), ("extremes", "zz8")])
+def test_v1_lookback_cases_match_plain_on_card(cuda_device, name, flavor):
+    """Lengths on V1E's and V1D's tile edges, one-code and cycling rows, odd
+    nibble offsets carried across empty tiles (the shared half-byte), the
+    none8 sign extremes and the zz8 delta extremes: equal to the plain
+    versions and to the oracle, row by row."""
+    _v1_check(*_v1_tile_case(name, flavor, cuda_device), flavor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,shift", [
+    (f, s) for f in ("zz8", "none8") for s in (1, 2, 3)])
+def test_v1_encode_views_off_alignment_on_card(cuda_device, flavor, shift):
+    """Inputs that are contiguous views 1-3 bytes into their buffer: V1E
+    reads them one value at a time and equals the plain version; V1D reads
+    keys and data at the same shift."""
+    x, n = _v1_tile_case("tile edges", flavor, cuda_device)
+    keys, data, _ = _v1_check(_shifted(x, shift), n, flavor)
+    assert torch.equal(
+        svb_v1.decode_v1_rows(_shifted(keys, shift), _shifted(data, shift), n,
+                              flavor),
+        svb_v1.decode_v1_rows_plain(keys, data, n, flavor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["zz8", "none8"])
+def test_v1_decode_short_data_row_on_card(cuda_device, flavor):
+    """Data rows cut shorter than the keys require, at 1 byte, at a tile
+    less one and 3 bytes short: V1D reads nothing at or past D, and missing
+    nibbles read as 0, as in the plain version."""
+    x, n = _v1_tile_case("all code 3", flavor, cuda_device)
+    keys, data, data_len = _v1_check(x, n, flavor)
+    for D in (1, 4095, int(data_len.min()) - 3):
+        short = data[:, :D].contiguous()
+        assert torch.equal(svb_v1.decode_v1_rows(keys, short, n, flavor),
+                           svb_v1.decode_v1_rows_plain(keys, short, n, flavor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["zz8", "none8"])
+def test_v1_repeated_calls_give_identical_bytes_on_card(cuda_device, flavor):
+    """A look-back race shows as output that changes from call to call: 20
+    V1E and V1D calls on [4, 4M] int8 walks give the same keys, lengths,
+    written bytes and values, those of the plain version."""
+    x = torch.from_numpy(kernel_times.walk8()).to(cuda_device)
+    n = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                   device=cuda_device)
+    keys, data, data_len = svb_v1.encode_v1_rows(x, n, flavor)
+    k0, d0, l0 = svb_v1.encode_v1_rows_plain(x, n, flavor)
+    written = torch.arange(data.shape[1], device=cuda_device)[None] < \
+        data_len[:, None]
+    assert torch.equal(keys, k0) and torch.equal(data_len, l0)
+    assert torch.equal(torch.where(written, data, 0),
+                       torch.where(written, d0, 0))
+    for _ in range(20):
+        k, d, l = svb_v1.encode_v1_rows(x, n, flavor)
+        assert torch.equal(k, keys) and torch.equal(l, data_len)
+        assert torch.equal(torch.where(written, d, 0),
+                           torch.where(written, data, 0))
+        assert torch.equal(svb_v1.decode_v1_rows(keys, data, n, flavor), x)
 
 
 @pytest.mark.cuda

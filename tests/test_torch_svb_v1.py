@@ -86,8 +86,9 @@ def test_matches_pallas_v1(name, flavor):
 
 
 def test_odd_nibble_input_has_odd_prefixes():
-    """The all-codes input really puts values on odd nibble offsets at the
-    boundaries of the kernels' 1024-value tiles and of 4-value threads."""
+    """The all-codes input really puts values on odd nibble offsets at
+    1024-value boundaries (the Pallas tests' blocks) and at the starts of
+    4-value key bytes."""
     sig = signals.v1_odd_nibbles()
     v = scalar.zigzag_delta_encode(sig, 1)
     nib = np.where(v == 0, 0, np.where(v < 16, 1, np.where(v < 256, 2, 4)))
@@ -95,6 +96,94 @@ def test_odd_nibble_input_has_odd_prefixes():
     assert (starts[::1024] % 2).any()
     assert (starts[::4] % 2).mean() > 0.2
     assert set(np.unique(nib)) == {0, 1, 2, 4}
+
+
+_TILE = 4096  # V1E's and V1D's tile (``vbz_v1_encode_tile``)
+_TILE_CASES = [
+    *((name, f) for name in ("tile edges", "all code 0", "all code 3",
+                             "codes cycling", "odd offsets across empty tiles")
+      for f in ("zz8", "none8")),
+    ("negative", "none8"), ("extremes", "zz8")]
+
+
+def _tile_case(name: str, flavor: str):
+    return next(c[2:] for c in signals.v1_tile_cases(_TILE)
+                if c[:2] == (name, flavor))
+
+
+@pytest.mark.parametrize("name,flavor", _TILE_CASES)
+def test_tile_cases_match_oracle(name, flavor):
+    """Every signals.v1_tile_cases case at the kernels' 4096-value tile:
+    each row's stream is the oracle's on its own prefix, and decode gives
+    the row back, zeros past its length."""
+    rows, lens = _tile_case(name, flavor)
+    streams, keys, data, _ = _encode(rows, lens.tolist(), flavor)
+    for b, n in enumerate(lens.tolist()):
+        assert streams[b] == oracle.svb_compress(
+            rows[b, :n], 1, flavor == "zz8", 1), f"row {b}"
+    out = _decode(keys, data, lens.tolist(), flavor)
+    valid = np.arange(rows.shape[1])[None] < lens[:, None]
+    np.testing.assert_array_equal(out, np.where(valid, rows, 0))
+
+
+def _pallas_stream(sig: np.ndarray, block: int, flavor: str):
+    """The Pallas v1 kernels in interpret mode on ``sig``, padded with
+    code-0 values to a whole number of blocks: the stream of ``sig`` and the
+    decoded values of the padded row."""
+    pad = -sig.size % block
+    fill = sig[-1] if flavor == "zz8" else 0   # a delta of 0, or 0
+    x = np.concatenate([sig, np.full(pad, fill, np.int8)])
+    with pltpu.force_tpu_interpret_mode():
+        keys, data, total = pv1.encode_v1(jnp.asarray(x), block=block,
+                                          flavor=flavor)
+        keys = np.asarray(keys).reshape(-1)
+        data = np.asarray(data).astype(np.uint8)[: (int(total) + 1) // 2]
+        noffs = pv1.nib_offsets_from_keys(jnp.asarray(keys), block)
+        out = pv1.decode_v1(jnp.asarray(keys), jnp.asarray(data.view(np.int8)),
+                            noffs, block=block, flavor=flavor)
+    return (keys[: (sig.size + 3) // 4].tobytes() + data.tobytes(),
+            np.asarray(out)[: sig.size])
+
+
+@pytest.mark.parametrize("name,flavor,block", [
+    ("odd offsets across empty tiles", "zz8", 16384),
+    ("odd offsets across empty tiles", "none8", 16384),
+    ("codes cycling", "zz8", 4096)])
+def test_tile_cases_match_pallas_v1(name, flavor, block):
+    """The first odd-offset row (36,868 values) and a codes-cycling row
+    (12,296) through the Pallas v1 kernels in interpret mode: the port's
+    stream and values equal theirs. The odd-offset row runs in the Pallas
+    kernels' own block of 16384: in blocks of 4096 or 512 their stream has
+    its first 4096 data bytes 0 (ROADMAP.md, Queue 3)."""
+    rows, lens = _tile_case(name, flavor)
+    sig = rows[0, :lens[0]]
+    want, jout = _pallas_stream(sig, block, flavor)
+    streams, keys, data, _ = _encode(sig[None], [sig.size], flavor)
+    assert streams[0] == want
+    out = _decode(keys, data, [sig.size], flavor)[0]
+    np.testing.assert_array_equal(out, jout)
+    np.testing.assert_array_equal(out, sig)
+
+
+def test_odd_offset_case_puts_odd_offsets_after_empty_tiles():
+    """The odd-offset rows really start 4096-value tiles on odd nibble
+    offsets after one and after two empty tiles, start a tile on an odd
+    offset with a code-0 value (a code-0 run one value short of a tile),
+    and end on an odd count after empty tiles, for both flavors."""
+    for flavor in ("zz8", "none8"):
+        rows, lens = _tile_case("odd offsets across empty tiles", flavor)
+        sig = rows[0, :lens[0]]
+        v = (scalar.zigzag_delta_encode(sig, 1) if flavor == "zz8"
+             else sig.astype(np.int64) & 0xFFFFFFFF)
+        nib = np.where(v == 0, 0, np.where(v < 16, 1, np.where(v < 256, 2, 4)))
+        starts = np.concatenate([[0], np.cumsum(nib)])[::_TILE]
+        agg = np.add.reduceat(nib, np.arange(0, sig.size, _TILE))
+        odd_after = [t for t in range(1, agg.size) if starts[t] % 2]
+        empty_before = {t: next(k for k in range(t) if agg[t - 1 - k]) for t
+                        in odd_after}
+        assert 1 in empty_before.values() and 2 in empty_before.values()
+        assert any(nib[t * _TILE] == 0 and agg[t - 1] for t in odd_after)
+        assert nib.sum() % 2 == 1 and agg[-1] == 0 and agg[-2] == 0
 
 
 @pytest.mark.parametrize("flavor", ["zz8", "none8"])

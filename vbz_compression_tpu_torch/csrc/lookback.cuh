@@ -1,5 +1,6 @@
 // Decoupled look-back for the one-pass kernels (w2_codec.cu: E and D;
-// w4_codec.cu: E4 and D4; probe.cu: the prefix sum), sm_90a.
+// w4_codec.cu: E4 and D4; v1_codec.cu: V1E, whose variant also carries the
+// row's last nibble, and V1D; probe.cu: the prefix sum), sm_90a.
 //
 // Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
 // Look-back" (2016), written out by hand. A one-pass kernel carries a
@@ -125,6 +126,86 @@ static __device__ __forceinline__ uint32_t resolve_prefix(StatusWord* row,
   const uint32_t prefix = look_back(row, t);
   if ((threadIdx.x & 31) == 0) {
     publish_status(row + t, kStatusPrefix, prefix + aggregate);
+  }
+  return prefix;
+}
+
+// The variant that carries a nibble beside the sum (V1E, v1_codec.cu): each
+// tile's state is (nibbles, last nibble, has-nibble), combined as
+// (a, n_a, h_a) + (b, n_b, h_b) = (a + b, h_b ? n_b : n_a, h_a | h_b). The
+// nibble and its flag ride in the status word's upper half as a tag above
+// the flag: kNibbleHas | nibble, or 0 when the tiles hold no nibble. The
+// functions above stay as they are, so the other kernels keep their code.
+constexpr uint32_t kNibbleHas = 0x10;  // tag bit: the tag holds a nibble
+constexpr int kTagShift = 8;           // tag position in the upper half
+
+static __device__ __forceinline__ void publish_tagged(StatusWord* s,
+                                                      uint32_t flag,
+                                                      uint32_t tag,
+                                                      uint32_t value) {
+  publish_status(s, flag | (tag << kTagShift), value);
+}
+
+// publish_aggregate with the tile's own tag.
+static __device__ __forceinline__ void publish_aggregate_tagged(
+    StatusWord* row, int t, uint32_t aggregate, uint32_t tag) {
+  publish_tagged(row + t, t == 0 ? kStatusPrefix : kStatusAggregate, tag,
+                 aggregate);
+}
+
+// look_back, which also sets *tag to the carried tag of the tiles before t:
+// that of the nearest lane whose tag holds a nibble, up to the inclusive
+// prefix the walk stops at (0 when none does).
+static __device__ uint32_t look_back_tagged(const StatusWord* row, int t,
+                                            uint32_t* tag) {
+  const int lane = threadIdx.x & 31;
+  uint32_t prefix = 0, found = 0;
+  for (int end = t;; end -= 32) {
+    const int j = end - 1 - lane;
+    StatusWord s;
+    unsigned done;
+    while (true) {
+      s = j >= 0 ? read_status(row + j) : status_word(kStatusPrefix, 0);
+      const uint32_t flag = status_flag(s) & ((1u << kTagShift) - 1u);
+      const unsigned empty = __ballot_sync(kWarpMask, flag == kStatusEmpty);
+      done = __ballot_sync(kWarpMask, flag == kStatusPrefix);
+      if (empty == 0u ||
+          (done != 0u && (done & (0u - done)) < (empty & (0u - empty)))) {
+        break;
+      }
+      __nanosleep(32);
+    }
+    const int stop = done ? __ffs(done) - 1 : 31;
+    uint32_t v = lane <= stop ? static_cast<uint32_t>(s) : 0u;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kWarpMask, v, d);
+    prefix += v;
+    if (!(found & kNibbleHas)) {
+      const uint32_t lane_tag = status_flag(s) >> kTagShift;
+      const unsigned has =
+          __ballot_sync(kWarpMask, lane <= stop && (lane_tag & kNibbleHas));
+      if (has) found = __shfl_sync(kWarpMask, lane_tag, __ffs(has) - 1);
+    }
+    if (done) {
+      *tag = found;
+      return prefix;
+    }
+  }
+}
+
+// resolve_prefix with tags: own_tag is the tile's (0 when it holds no
+// nibble); *carried receives the tag of the tiles before it. Publishes the
+// inclusive prefix with the combined tag.
+static __device__ __forceinline__ uint32_t resolve_prefix_tagged(
+    StatusWord* row, int t, uint32_t aggregate, uint32_t own_tag,
+    uint32_t* carried) {
+  *carried = 0;
+  if (t == 0) return 0u;
+  const uint32_t prefix = look_back_tagged(row, t, carried);
+  if ((threadIdx.x & 31) == 0) {
+    publish_tagged(row + t, kStatusPrefix,
+                   (own_tag & kNibbleHas) ? own_tag : *carried,
+                   prefix + aggregate);
   }
   return prefix;
 }

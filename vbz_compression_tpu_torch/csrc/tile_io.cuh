@@ -1,5 +1,6 @@
 // Tile loads, stores and staging shared by the one-pass StreamVByte kernels
-// (w2_codec.cu: E and D; w4_codec.cu: E4 and D4), sm_90a.
+// (w2_codec.cu: E and D; w4_codec.cu: E4 and D4; v1_codec.cu: V1E and V1D),
+// sm_90a.
 //
 // A one-pass kernel owns a tile of kThreads x kPerThread values of one row,
 // taken by the ticket of lookback.cuh. Each thread holds 16 consecutive

@@ -56,10 +56,13 @@ _SIGNATURES = {
         "vbz_w4_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "v1": {
-        "vbz_v1_tile": [],
-        # x, lens, keys, data, data_len, scratch, B, N, zigzag, stream
+        "vbz_v1_encode_tile": [],
+        "vbz_v1_decode_tile": [],
+        # x, lens, keys, data, data_len, scratch (zeroed look-back state),
+        # B, N, zigzag, stream
         "vbz_v1_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        # keys, data, counts, out, scratch, B, N, D, zigzag, stream
+        # keys, data, counts, out, scratch (zeroed look-back state), B, N,
+        # D, zigzag, stream
         "vbz_v1_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "copy": {

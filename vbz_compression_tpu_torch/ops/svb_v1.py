@@ -15,10 +15,18 @@ LSB first. The data section is the nibble stream packed low nibble first;
 its byte length is ``(nibbles + 1) // 2``, an odd last nibble padded with 0.
 
 What bounds the kernels is bytes: 1 read per input value, 0.25 key bytes
-plus 0-2 data bytes written, the reverse on decode. Neighbouring values can
-share a data byte (one's last nibble, the next one's first, across threads
-and tiles), so the encode kernel zeroes each row's data bytes and ORs the
-nibbles in with atomics.
+plus 0-2 data bytes written, the reverse on decode. So each is one launch
+with the design of E4 and D4 (``svb_w4``): a block owns a tile of 4096
+values (16 per thread: one 32-bit key word), takes it from an atomic ticket,
+gets the row's nibble offset (and, in V1D for zz8, the un-delta sum) of the
+tiles before it by a decoupled look-back (``csrc/lookback.cuh``), and moves
+the tile's data span between device memory and shared memory with 16-byte
+vectors. Neighbouring values can share a data byte (one's last nibble, the
+next one's first, across threads and tiles): V1E carries the row's last
+nibble through the look-back beside the offset, so each byte is written
+whole by the tile that holds its high nibble, with no atomics in device
+memory. The wrapper zeroes the look-back state (one fill) before each
+launch.
 
 Layouts (B rows, N values per row, N % 4 == 0):
     encode_v1_rows(x [B,N] i8, lens [B] i32)
@@ -42,11 +50,11 @@ from . import _rows
 
 FLAVORS = ("zz8", "none8")
 
-# Kernel-sequence launches, one per wrapper call that reached the card.
+# Kernel launches, one per wrapper call that reached the card.
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 
-_MAX_N = 1 << 29   # keeps every in-row nibble offset (< 4N) in a uint32
+_MAX_N = 1 << 29   # keeps every in-row nibble offset (< 4N) below 2^31
 
 
 def _check_flavor(flavor: str) -> None:
@@ -99,15 +107,14 @@ def encode_v1_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
     _rows.check_kernel_args(B, N, _MAX_N, x, lens)
     keys = torch.empty(B, N // 4, dtype=torch.uint8, device=x.device)
     data = torch.empty(B, 2 * N, dtype=torch.uint8, device=x.device)
-    data_len = torch.zeros(B, dtype=torch.int32, device=x.device)
     if B == 0 or N == 0:
-        return keys, data, data_len
+        return keys, data, torch.zeros(B, dtype=torch.int32, device=x.device)
+    data_len = torch.empty(B, dtype=torch.int32, device=x.device)
     from . import _build
 
     lib = _build.lib("v1")
-    tiles = -(-N // lib.vbz_v1_tile())
-    scratch = torch.empty(2 * B * tiles + B, dtype=torch.int32,
-                          device=x.device)
+    scratch = _rows.lookback_scratch(lib.vbz_v1_encode_tile(), B, N, 1,
+                                     x.device)
     _rows.launch(lib.vbz_v1_encode, "v1 encode", x, lens, keys, data,
                  data_len, scratch, B, N, int(flavor == "zz8"))
     global ENCODE_LAUNCHES
@@ -162,10 +169,11 @@ def decode_v1_rows(keys: torch.Tensor, data: torch.Tensor,
     from . import _build
 
     lib = _build.lib("v1")
-    tiles = -(-N // lib.vbz_v1_tile())
-    scratch = torch.empty(4, B, tiles, dtype=torch.int32, device=keys.device)
+    zigzag = flavor == "zz8"
+    scratch = _rows.lookback_scratch(lib.vbz_v1_decode_tile(), B, N,
+                                     1 + zigzag, keys.device)
     _rows.launch(lib.vbz_v1_decode, "v1 decode", keys, data, counts, out,
-                 scratch, B, N, D, int(flavor == "zz8"))
+                 scratch, B, N, D, int(zigzag))
     global DECODE_LAUNCHES
     DECODE_LAUNCHES += 1
     return out

@@ -3,8 +3,8 @@ numpy from a seed: the ``bench.py`` tiers as B rows of N int16 (its
 ``clean`` and ``mixed`` tiers byte for byte, through :func:`gen_signal`),
 a corpus of reads of log-uniform length, content for the other flavors
 (int32, int8 and unsigned signals, uniform noise, the v1 odd-nibble
-pattern), and the inputs that carry W2's and W4's look-back across tile
-edges."""
+pattern), and the inputs that carry the look-back of W2, W4 and v1 across
+tile edges."""
 
 from __future__ import annotations
 
@@ -319,6 +319,86 @@ def w4_tile_cases(tile: int) -> list:
         signs = np.array([info.min, -1, info.max, 0, -2], np.int64)
         cases.append(("negative", flavor,
                       np.resize(signs, (3, n)).astype(dtype), full))
+    return cases
+
+
+# none8 values of v1 codes 0-3 (3: negative, sign-extended to 32 bits).
+_V1_NONE8 = np.array([0, 5, 100, -7], np.int8)
+
+
+def v1_rows_of_codes(codes: np.ndarray, flavor: str) -> np.ndarray:
+    """int8 rows [B, n] whose v1 codes are ``codes`` [B, n] (0-3). none8
+    maps each code to a value; zz8 takes a 32-bit delta per code from the
+    sample before (0, 1 or 50 toward 0, or to the far end of the int8
+    range), except a code 3 asked for at sample 0, which no int8 delta
+    reaches: it takes +127 (code 2)."""
+    if flavor == "none8":
+        return _V1_NONE8[codes]
+    out = np.empty(codes.shape, np.int8)
+    for b, row in enumerate(codes.tolist()):
+        x, vals = 0, []
+        for c in row:
+            if c == 1:
+                x += -1 if x > 0 else 1
+            elif c == 2:
+                x += -50 if x > 0 else 50
+            elif c == 3:
+                x = -128 if x > 0 else 127
+            vals.append(x)
+        out[b] = vals
+    return out
+
+
+def v1_tile_cases(tile: int) -> list:
+    """(name, flavor, rows [B, N], lens [B]) that carry v1's nibble offset,
+    V1E's shared half-byte and V1D's un-delta sum across tiles of ``tile``
+    values, for zz8 and none8: unlike rows whose lengths sit on tile edges
+    (N = 1,000,004), all-code-0 rows (constant for zz8, zeros for none8),
+    all-code-3 rows, codes cycling 0-3, odd nibble offsets carried across
+    empty tiles (an odd nibble count, then code-0 runs of exactly one tile,
+    two tiles and one value short of a tile, each followed by values again,
+    and a run to the row's end), the none8 sign extremes and the zz8 delta
+    extremes (zig-zag values 509 and 510)."""
+    rng = np.random.default_rng(47)
+    lens = np.array([1, tile - 1, tile, tile + 1, 3 * tile + 5, 1_000_003],
+                    np.int32)
+    width = -(-int(lens.max()) // 4) * 4
+    n = 3 * tile + 8
+    full = np.full(3, n, np.int32)
+    # Code runs of the odd-offset rows, (code, values): tile 0 ends on an
+    # odd count, tile 1 is empty, tile 2 starts on an odd offset; tiles 3-4
+    # are empty and tile 5 starts odd; a run one value short of a tile puts
+    # a code-0 value first in tile 6, again at an odd offset.
+    runs = [(1, tile - 1), (0, tile + 1), (1, tile - 2), (0, 2 * tile + 2),
+            (1, 2), (0, tile - 1), (3, 1), (2, 5), (1, 3), (0, tile - 11),
+            (1, 1), (0, 2 * tile + 4)]
+    odd = np.concatenate([np.full(k, c) for c, k in runs])
+    mixed = rng.integers(0, 4, odd.size)
+    cases = []
+    for flavor in ("zz8", "none8"):
+        pick = rng.integers(0, 3, (lens.size, width))
+        edges = np.where(pick == 0, 0, np.where(
+            pick == 1, rng.integers(-8, 9, (lens.size, width)),
+            uniform(rng, lens.size * width, np.int8).reshape(lens.size,
+                                                             width)))
+        cases.append(("tile edges", flavor, edges.astype(np.int8), lens))
+        code0 = (np.array([[0], [5], [-100]]) * np.ones(n, np.int64)
+                 if flavor == "zz8" else np.zeros((3, n)))
+        cases.append(("all code 0", flavor, code0.astype(np.int8), full))
+        cases.append(("all code 3", flavor,
+                      v1_rows_of_codes(np.full((3, n), 3), flavor), full))
+        cases.append(("codes cycling", flavor, v1_rows_of_codes(
+            np.resize(np.arange(4), (3, n)), flavor), full))
+        rows = v1_rows_of_codes(np.stack([odd, odd, np.where(
+            np.arange(odd.size) < 5 * tile, odd, mixed)]), flavor)
+        cases.append(("odd offsets across empty tiles", flavor, rows,
+                      np.array([odd.size, 6 * tile + 1, odd.size - 2],
+                               np.int32)))
+    signs = np.array([-128, -1, 127, 0, -2, 15, 16, 1], np.int64)
+    cases.append(("negative", "none8",
+                  np.resize(signs, (3, n)).astype(np.int8), full))
+    cases.append(("extremes", "zz8", np.resize(
+        np.array([-128, 127], np.int8), (3, n)), full))
     return cases
 
 

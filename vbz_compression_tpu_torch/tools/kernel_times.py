@@ -32,9 +32,10 @@ Inputs, made from seeds with numpy:
 For the codec inputs and each direction: one call with the L2 flushed and
 ten back to back, each the best of three (``profiling``'s ``cold_ms`` and
 ``warm_ms``), and the bound (the bytes the call must move at the data
-sheet's 3.35 TB/s). The w4 group also lists what ``torch.profiler`` sees of
-five encode calls and five decode calls on zz32 and none16 signal: each
-kernel's name, launches and device us per launch. Prints the card's name and
+sheet's 3.35 TB/s). The w4 and v1 groups also list what ``torch.profiler``
+sees of five encode calls and five decode calls (w4: zz32 and none16
+signal; v1: zz8 and none8 on the int8 walks): each kernel's name, launches
+and device us per launch. Prints the card's name and
 power limit, then one JSON object.
 """
 
@@ -82,20 +83,25 @@ def codec2_rows() -> tuple[np.ndarray, np.ndarray]:
     return sig[None], zz[None]
 
 
+def walk8() -> np.ndarray:
+    """[B, N] int8 walks, row b from seed b: the zz8 and v1 input."""
+    return np.stack([signals.int8_walk(np.random.default_rng(b), N)
+                     for b in range(B)])
+
+
 def inputs(pair: str) -> dict:
     """label -> (flavor, rows) of one kernel pair."""
     if pair in ("w2", "v1"):
-        walk8 = np.stack([signals.int8_walk(np.random.default_rng(b), N)
-                          for b in range(B)])
+        walk = walk8()
     if pair == "v1":
-        return {f"zz8 int8 walk [{B}, {N}]": ("zz8", walk8),
-                f"none8 int8 walk [{B}, {N}]": ("none8", walk8),
+        return {f"zz8 int8 walk [{B}, {N}]": ("zz8", walk),
+                f"none8 int8 walk [{B}, {N}]": ("none8", walk),
                 f"zz8 uniform [{B}, {N}]": ("zz8", signals.uniform(
                     np.random.default_rng(9), B * N, np.int8).reshape(B, N))}
     if pair == "w2":
         out = {f"zz16 {k} [{B}, {N}]": ("zz16", v)
                for k, v in signals.tiers(B, N).items()}
-        out[f"zz8 int8 walk [{B}, {N}]"] = ("zz8", walk8)
+        out[f"zz8 int8 walk [{B}, {N}]"] = ("zz8", walk)
         out["zz16 realistic [64, 8192]"] = (
             "zz16", signals.TIERS["realistic"](64, 8192))
         return out
@@ -130,19 +136,26 @@ def time_input(enc_fn, dec_fn, flavor: str, rows: np.ndarray,
     return out
 
 
-def profile(flavor: str, direction: str) -> dict:
+def profile(pair: str, flavor: str, direction: str) -> dict:
     """{kernel: {"launches", "us"}} over five calls of one direction
-    ("encode" or "decode") of one flavor on its [B, N] signal input: every
-    kernel a call launches, fills included."""
-    x = torch.from_numpy(w4_rows(flavor, "signal")).cuda()
+    ("encode" or "decode") of one flavor of a pair ("w4" or "v1") on its
+    [B, N] signal input (v1: the int8 walks): every kernel a call launches,
+    fills included."""
+    if pair == "w4":
+        rows, enc_fn, dec_fn = (w4_rows(flavor, "signal"),
+                                svb_w4.encode_w4_rows, svb_w4.decode_w4_rows)
+    else:
+        rows = walk8()
+        enc_fn, dec_fn = svb_v1.encode_v1_rows, svb_v1.decode_v1_rows
+    x = torch.from_numpy(rows).cuda()
     lens = torch.full((B,), N, dtype=torch.int32, device=x.device)
-    keys, data, _ = svb_w4.encode_w4_rows(x, lens, flavor)
+    keys, data, _ = enc_fn(x, lens, flavor)
     if direction == "encode":
         def call():
-            svb_w4.encode_w4_rows(x, lens, flavor)
+            enc_fn(x, lens, flavor)
     else:
         def call():
-            svb_w4.decode_w4_rows(keys, data, lens, flavor)
+            dec_fn(keys, data, lens, flavor)
     call()
     torch.cuda.synchronize()
     with profiling.trace() as prof:
@@ -216,11 +229,14 @@ def main() -> int:
                   f"{t['enc_bound_ms']:.4f}; {d} {t['dec_ms']:.4f} cold, "
                   f"{t['dec_warm_ms']:.4f} warm, bound "
                   f"{t['dec_bound_ms']:.4f}")
-    if "w4" in groups:
-        for flavor in ("zz32", "none16"):
-            for direction, kernel in (("encode", "E4"), ("decode", "D4")):
-                times[f"w4 {flavor} {direction} profile"] = kernels = profile(
-                    flavor, direction)
+    for pair, flavors, names in (("w4", ("zz32", "none16"), ("E4", "D4")),
+                                 ("v1", ("zz8", "none8"), ("V1E", "V1D"))):
+        if pair not in groups:
+            continue
+        for flavor in flavors:
+            for direction, kernel in zip(("encode", "decode"), names):
+                times[f"{pair} {flavor} {direction} profile"] = kernels = \
+                    profile(pair, flavor, direction)
                 print(f"  {kernel} {flavor} under torch.profiler, per launch "
                       "over 5 calls:")
                 for name, k in kernels.items():
