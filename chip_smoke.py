@@ -54,7 +54,21 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      pass), the copy bandwidth and the pipeline line; E, D and CP must have
      launched (counts set to 0 just before and read just after);
   8. the probe path: vbz_compression_tpu_torch.tools.capability_probe, every
-     case OK; every probe kernel and CP must have launched.
+     case OK; every probe kernel and CP must have launched;
+  9. the corpus paths, on the 256 pseudo-reads (signals.pseudo_reads) at zstd
+     level 0 (level 1 needs the zstandard package; the driver's default is
+     level 1): (a) parallel.multihost.compress_signals at cd_values
+     (0,2,1,0) and (0,2,0,0), one encode launch per bucket (E, then E4),
+     every frame equal to the oracle's and every read round-tripped through
+     the batch API on the card; (b) the data-parallel plane
+     (parallel.sharded) in a world-1 NCCL group in this process on the
+     largest bucket: gathered lengths equal to the local ones, totals their
+     sums, every ok true, the bytes the oracle's, the rows round-tripped;
+     (c) two tools.multihost_smoke processes on the one card, joined by
+     gloo, over the pseudo-reads split into two in-memory files (which need
+     no h5py; fast5 files and fast5vbz are checked by the CPU tests):
+     identical global stats, and each .vbz file byte for byte the oracle's
+     frames of that file's reads.
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -144,13 +158,16 @@ class Port:
 
         import vbz_compression_tpu_torch as pkg
         from vbz_compression_tpu_torch import api, bench, signals
+        from vbz_compression_tpu_torch.models import codec
         from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1,
                                                    svb_w2, svb_w4)
+        from vbz_compression_tpu_torch.parallel import multihost, sharded
         from vbz_compression_tpu_torch.tools import (capability_probe,
                                                      kernel_times)
         from vbz_compression_tpu_torch.utils import profiling, roofline
 
         self.torch, self.pkg, self.api, self.signals = torch, pkg, api, signals
+        self.codec, self.multihost, self.sharded = codec, multihost, sharded
         self.build, self.bench, self.probe = _build, bench, capability_probe
         self.times = kernel_times
         self.probes, self.profiling, self.roofline = probes, profiling, roofline
@@ -721,6 +738,189 @@ def probe_path(port: Port) -> tuple[dict, dict]:
     return {k: v for k, v in launches.items() if v}, result
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the corpus paths
+# ---------------------------------------------------------------------------
+
+# (cd_values, kernel pair) of the corpus driver's runs, at zstd level 0.
+CORPUS_PATHS = (((0, 2, 1, 0), "w2"), ((0, 2, 0, 0), "w4"))
+SMOKE_FILES = 2            # in-memory files of the two-process run
+SMOKE_TIMEOUT = 300        # seconds each smoke process may take
+
+
+def corpus_driver(port: Port, reads, cd_values, pair: str):
+    """(a) compress_signals on the card: one encode launch per bucket, every
+    frame the oracle's, every read round-tripped through the batch API on
+    the card. Returns (run, the oracle's frames)."""
+    api, torch, pkg = port.api, port.torch, port.pkg
+    opts = pkg.CompressionOptions.from_cd_values(cd_values)
+    buckets = len({port.multihost.bucket_of(r.size) for r in reads})
+    e_name, d_name = PAIRS[pair][0]
+    torch.cuda.synchronize()
+    port.zero_counts()
+    t0 = time.perf_counter()
+    frames = port.multihost.compress_signals(reads, opts)
+    secs = time.perf_counter() - t0
+    encodes = port.counts()[e_name]
+    back = api.vbz_decompress_sized_batch(frames, opts)
+    launches = port.counts()
+    if encodes != buckets:
+        raise SystemExit(f"corpus driver {cd_values}: {encodes} {e_name} "
+                         f"launches for {buckets} buckets")
+    port.require_launched(f"corpus driver {cd_values}", launches,
+                          (e_name, d_name))
+    want = [api.vbz_compress_sized(r, opts, backend=pkg.oracle)
+            for r in reads]
+    for i, (r, f, w, b) in enumerate(zip(reads, frames, want, back)):
+        if f != w:
+            raise SystemExit(f"corpus driver {cd_values} read {i}: frame "
+                             "differs from the NumPy oracle")
+        if not np.array_equal(np.frombuffer(b, np.int16), r):
+            raise SystemExit(f"corpus driver {cd_values} read {i}: round "
+                             "trip differs")
+    raw = sum(r.nbytes for r in reads)
+    run = {"path": f"corpus driver {cd_values}", "reads": len(reads),
+           "bytes": raw, "frame_bytes": sum(map(len, frames)),
+           "buckets": buckets, "encode_launches": encodes,
+           "launches": {k: v for k, v in launches.items() if v},
+           "host_to_host_s": secs}
+    print(f"  compress_signals {cd_values}: {len(reads)} reads, {raw} bytes "
+          f"-> {run['frame_bytes']} framed in {buckets} buckets, {encodes} "
+          f"{e_name} launches; every frame equals the oracle's, every read "
+          f"round-trips on the card; {secs:.3f} s host to host (one call)")
+    return run, want
+
+
+def plane_world1(port: Port, reads) -> dict:
+    """(b) the data-parallel plane in a world-1 NCCL group on the largest
+    bucket of ``reads``: both planes' gathered lengths against the local
+    ones, totals, ok, the oracle's bytes and the round trips."""
+    torch, sharded, oracle = port.torch, port.sharded, port.pkg.oracle
+    mh = port.multihost
+    width = max(mh.bucket_of(r.size) for r in reads)
+    rows = [r for r in reads if mh.bucket_of(r.size) == width]
+    x, lens = port.codec.padded_rows(rows, DEVICE, width)
+    want = torch.where(torch.arange(width, device=DEVICE)[None]
+                       < lens[:, None], x, 0)
+    group = mh.initialize(mh.local_init_method(), 1, 0, "nccl")
+    try:
+        torch.cuda.synchronize()
+        port.zero_counts()
+        keys, data, data_len, total = sharded.batch_encode_sharded_rows(
+            x, lens, group=group)
+        back = sharded.batch_decode_sharded_rows(keys, data, lens,
+                                                 group=group)
+        streams, stream_lens, s_total = sharded.batch_encode_sharded(
+            x, lens, group=group)
+        out, ok = sharded.batch_decode_sharded(streams, lens, stream_lens,
+                                               group=group, out_n=width)
+        launches = port.counts()
+        t0 = time.perf_counter()
+        sharded.all_gather(data_len, group)
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        port.torch.distributed.destroy_process_group()
+    port.require_launched("the plane", launches,
+                          ("w2_encode", "w2_decode"))
+    _, _, local_len, _ = sharded.batch_encode_sharded_rows(x, lens)
+    _, local_stream_lens, _ = sharded.batch_encode_sharded(x, lens)
+    B, N = x.shape
+    keys_h, data_h = keys.cpu().numpy(), data.cpu().numpy()
+    streams_h = streams.cpu().numpy()
+    for b, r in enumerate(rows):
+        ref = oracle.svb_compress(r, 2, True, 0)
+        k = (r.size + 3) // 4
+        if (keys_h[b, :k].tobytes() + data_h[b, :int(data_len[b])].tobytes()
+                != ref or streams_h[b, :int(stream_lens[b])].tobytes()
+                != ref):
+            raise SystemExit(f"plane row {b}: bytes differ from the oracle")
+    checks = {
+        "rows lengths gathered = local": torch.equal(data_len, local_len),
+        "rows total": int(total) == int(data_len.sum()) + B * N // 4,
+        "rows round trip": torch.equal(back, want),
+        "stream lengths gathered = local": torch.equal(stream_lens,
+                                                       local_stream_lens),
+        "streams total": int(s_total) == int(stream_lens.sum()),
+        "every ok": bool(ok.all()),
+        "streams round trip": torch.equal(out, want)}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"the plane in a world-1 NCCL group: {failed}")
+    print(f"  plane, world-1 NCCL group, [{B}, {N}] int16: rows and wire "
+          f"streams equal the oracle's, {', '.join(checks)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; one all_gather of "
+          f"{B} lengths {gather_ms:.3f} ms host to host")
+    return {"path": "plane, world-1 NCCL group", "shape": [B, N],
+            "launches": {k: v for k, v in launches.items() if v},
+            "all_gather_host_ms": gather_ms}
+
+
+def two_process_run(port: Port, n_reads: int, frames: list) -> dict:
+    """(c) two multihost_smoke processes on the one card, gloo between them,
+    over the pseudo-reads in SMOKE_FILES in-memory files at (0,2,1,0):
+    identical global stats, each .vbz file the oracle's ``frames`` (one per
+    read, in read order) of that file's reads."""
+    import subprocess
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m",
+               "vbz_compression_tpu_torch.tools.multihost_smoke",
+               "file://" + os.path.join(tmp, "rendezvous"), "2", "RANK", tmp,
+               "--backend", "gloo", "--pseudo-reads", str(n_reads),
+               "--files", str(SMOKE_FILES), "--zstd-level", "0"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([str(r) if a == "RANK" else a for a in cmd],
+                                  cwd=root, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=SMOKE_TIMEOUT)
+                if p.returncode != 0:
+                    raise SystemExit(f"smoke rank failed: {err[-3000:]}")
+                outs.append(json.loads([ln for ln in out.splitlines()
+                                        if ln.startswith("{")][-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        keys = ("files", "reads", "raw_bytes", "compressed_bytes")
+        stats = [{k: o[k] for k in keys} for o in outs]
+        want = {"files": SMOKE_FILES, "reads": n_reads,
+                "raw_bytes": sum(int.from_bytes(f[:4], "little")
+                                 for f in frames),
+                "compressed_bytes": sum(map(len, frames))}
+        if stats != [want, want]:
+            raise SystemExit(f"two-process stats {stats}, want {want}")
+        names = sorted(n for n in os.listdir(tmp) if n.endswith(".vbz"))
+        if len(names) != SMOKE_FILES:
+            raise SystemExit(f"the two processes wrote {names}")
+        for k, name in enumerate(names):
+            expect = b"".join(np.uint32(len(frames[i])).tobytes() + frames[i]
+                              for i in range(k, n_reads, SMOKE_FILES))
+            with open(os.path.join(tmp, name), "rb") as f:
+                if f.read() != expect:
+                    raise SystemExit(f"{name} differs from the oracle's "
+                                     "frames")
+    launches = {}
+    for o in outs:
+        for k, v in o["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"  two processes on one card (gloo): identical stats {stats[0]}; "
+          f"both .vbz files equal the oracle's frames; launches {launches}; "
+          f"{wall:.2f} s wall from start to both exits, ranks "
+          f"{[round(o['seconds'], 3) for o in outs]} s in compress_corpus")
+    return {"path": "two-process corpus run", "launches": launches,
+            "stats": stats[0], "wall_s": wall,
+            "rank_s": [o["seconds"] for o in outs]}
+
+
 def main() -> int:
     import torch
 
@@ -819,6 +1019,19 @@ def main() -> int:
     probe_launches, probe_result = probe_path(port)
     runs.append({"path": "capability probe", "launches": probe_launches})
     lap("8 probe path")
+
+    # Phase 9: the corpus paths.
+    print("corpus paths (zstd level 0):")
+    pseudo = sig.pseudo_reads()
+    oracle_frames = {}
+    for cd_values, pair in CORPUS_PATHS:
+        run, oracle_frames[cd_values] = corpus_driver(port, pseudo, cd_values,
+                                                      pair)
+        runs.append(run)
+    runs.append(plane_world1(port, pseudo))
+    runs.append(two_process_run(port, len(pseudo),
+                                oracle_frames[CORPUS_PATHS[0][0]]))
+    lap("9 corpus paths")
     for mod in ("jax", "vbz_compression_tpu"):
         if mod in sys.modules or any(m.startswith(mod + ".")
                                      for m in sys.modules):

@@ -189,7 +189,10 @@ def test_import_leaves_jax_out():
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "want = {'bench', 'stage_profile', 'ops.probes', 'utils.roofline', "
-            "'utils.profiling', 'tools.capability_probe', 'models.codec'}\n"
+            "'utils.profiling', 'tools.capability_probe', 'models.codec', "
+            "'parallel.sharded', 'parallel.multihost', 'parallel.dryrun', "
+            "'utils.hdf5_chunks', 'tools.fast5vbz', 'tools.multihost_smoke', "
+            "'tools.corpus_times'}\n"
             "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
             "assert not missing, missing\n"
             "chip_smoke.Port()\n"

@@ -4,7 +4,8 @@ the port's NumPy oracle; the look-back across tiles of E/D, E4/D4 and
 V1E/V1D (tile edges, uniform codes, V1E's half-byte carried across empty
 tiles, short data rows, views off alignment, repeated calls);
 the copy kernel CP and the capability probe's kernels against their plain
-versions, the prefix sum also on tile edges and in repeated calls. Exact.
+versions, the prefix sum also on tile edges and in repeated calls; the
+data-parallel plane and the corpus driver against the oracle. Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -17,10 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from vbz_compression_tpu_torch import oracle, signals
+from vbz_compression_tpu_torch import CompressionOptions, api, oracle, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
 from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1, svb_w2,
                                            svb_w4)
+from vbz_compression_tpu_torch.parallel import multihost, sharded
 from vbz_compression_tpu_torch.tools import capability_probe, kernel_times
 from vbz_compression_tpu_torch.utils import roofline
 
@@ -504,3 +506,85 @@ def test_probe_kernels_match_plain_on_card(cuda_device):
     for key in before:
         assert probes.LAUNCHES[key] == before[key] + sum(
             c.key == key for c in cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd_values", [(0, 2, 1, 0), (0, 2, 0, 0)])
+def test_compress_signals_matches_oracle_on_card(cuda_device, cd_values):
+    """The corpus driver on the card at zstd level 0: one encode launch per
+    bucket (E with zig-zag, E4 without), every frame the oracle's; reads of
+    0-7 samples and of whole buckets among pseudo-reads."""
+    rng = np.random.default_rng(31)
+    reads = signals.pseudo_reads(12) + [
+        rng.integers(-3000, 3000, n, dtype=np.int16)
+        for n in (1, 2, 3, 4, 5, 6, 7, 4096, 8192, 0)]
+    opts = CompressionOptions.from_cd_values(cd_values)
+    mod = svb_w2 if opts.perform_delta_zig_zag else svb_w4
+    before = mod.ENCODE_LAUNCHES
+    frames = multihost.compress_signals(reads, opts, device=cuda_device)
+    assert mod.ENCODE_LAUNCHES - before == len(
+        {multihost.bucket_of(r.size) for r in reads})
+    assert frames == [api.vbz_compress_sized(r, opts, backend=oracle)
+                      for r in reads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,zigzag", [(2, True), (2, False), (4, True),
+                                         (1, True)])
+def test_plane_matches_oracle_on_card(cuda_device, size, zigzag):
+    """Both planes without a group on the card: each stream the oracle's,
+    every ok true, the rows round-tripped; rows of 0-7 values, of a tile and
+    one, and whole rows."""
+    dtype = {1: np.int8, 2: np.int16, 4: np.int32}[size]
+    N = 8192
+    lens = np.array([1, 2, 3, 4, 5, 6, 7, N, 4097, 0], np.int32)
+    x = signals.uniform(np.random.default_rng(37), lens.size * N,
+                        dtype).reshape(-1, N)
+    xt = torch.from_numpy(x).to(cuda_device)
+    lt = torch.from_numpy(lens).to(cuda_device)
+    kw = dict(integer_size=size, use_zigzag=zigzag)
+    want = torch.where(torch.arange(N, device=cuda_device)[None]
+                       < lt[:, None], xt, 0)
+    streams, stream_lens, total = sharded.batch_encode_sharded(xt, lt, **kw)
+    host = streams.cpu().numpy()
+    for b, n in enumerate(lens):
+        assert host[b, :int(stream_lens[b])].tobytes() == \
+            oracle.svb_compress(x[b, :n], size, zigzag, 0)
+    assert int(total) == int(stream_lens.sum())
+    out, ok = sharded.batch_decode_sharded(streams, lt, stream_lens,
+                                           out_n=N, **kw)
+    assert bool(ok.all()) and torch.equal(out, want)
+    keys, data, data_len, rows_total = sharded.batch_encode_sharded_rows(
+        xt, lt, **kw)
+    assert int(rows_total) == int(data_len.sum()) + lens.size * N // 4
+    assert torch.equal(sharded.batch_decode_sharded_rows(keys, data, lt,
+                                                         **kw), want)
+
+
+@pytest.mark.cuda
+def test_plane_in_world1_nccl_group_on_card(cuda_device):
+    """The plane's collectives in a world-1 NCCL group: the gathered
+    lengths and ``ok`` are the local ones, the totals their sums, the bytes
+    those of the plane without a group."""
+    import torch.distributed as dist
+
+    lens = np.array([1, 7, 4096, 8192], np.int32)
+    x = torch.from_numpy(signals.uniform(np.random.default_rng(41), 4 * 8192,
+                                         np.int16).reshape(4, 8192))
+    xt, lt = x.to(cuda_device), torch.from_numpy(lens).to(cuda_device)
+    alone = sharded.batch_encode_sharded(xt, lt)
+    group = multihost.initialize(multihost.local_init_method(), 1, 0, "nccl")
+    try:
+        streams, stream_lens, total = sharded.batch_encode_sharded(
+            xt, lt, group=group)
+        _, ok = sharded.batch_decode_sharded(streams, lt, stream_lens,
+                                             group=group, out_n=8192)
+        keys, data, data_len, rows_total = \
+            sharded.batch_encode_sharded_rows(xt, lt, group=group)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(streams, alone[0]) and torch.equal(stream_lens,
+                                                          alone[1])
+    assert int(total) == int(alone[2]) == int(stream_lens.sum())
+    assert bool(ok.all()) and ok.shape == (4,)
+    assert int(rows_total) == int(data_len.sum()) + 4 * 8192 // 4

@@ -111,6 +111,38 @@ def _split(flat: np.ndarray, sizes: list[int]) -> list[np.ndarray]:
     return np.split(flat, np.cumsum(sizes)[:-1]) if sizes else []
 
 
+def padded_rows(rows: list[np.ndarray], device, width: int | None = None):
+    """One [B, width] tensor on ``device`` of non-empty 1-D rows, and their
+    lengths (int32). ``width`` is a multiple of 4 and at least the longest
+    row; by default it is the longest row rounded up. The rows cross to the
+    device as one copy. Each row's tail is left unset: the encoders give
+    every value past lens[b] code 0 and no data bytes, which is what the JAX
+    backend's tail padding (its last sample repeated) was for."""
+    counts = [r.size for r in rows]
+    if width is None:
+        width = -(-max(counts) // 4) * 4
+    flat = torch.from_numpy(np.concatenate(rows)).to(device)
+    x = torch.empty(len(rows), width, dtype=flat.dtype, device=device)
+    start = 0
+    for b, n in enumerate(counts):
+        x[b, :n] = flat[start:start + n]
+        start += n
+    lens = torch.tensor(counts, dtype=torch.int32, device=device)
+    return x, lens
+
+
+def wire_streams(keys: torch.Tensor, data: torch.Tensor, key_lens: list[int],
+                 data_lens: list[int]) -> list[bytes]:
+    """Each row's wire stream, its first ``key_lens[j]`` key bytes and then
+    its first ``data_lens[j]`` data bytes, gathered on the device and copied
+    to the host once."""
+    flat = torch.cat([keys[j, :k] for j, k in enumerate(key_lens)]
+                     + [data[j, :d] for j, d in enumerate(data_lens)])
+    parts = _split(flat.cpu().numpy(), key_lens + data_lens)
+    B = len(key_lens)
+    return [parts[j].tobytes() + parts[B + j].tobytes() for j in range(B)]
+
+
 class TorchSvbBackend:
     """StreamVByte stage on ``device``: the port's kernels on a CUDA device,
     their plain PyTorch versions on the CPU."""
@@ -134,33 +166,13 @@ class TorchSvbBackend:
         if not live:
             return out
         rows = [typed[i] for i in live]
-        x, lens = self._padded_rows(rows)
+        x, lens = padded_rows(rows, self.device)
         keys, data, data_len = _KINDS[kind][0](x, lens, flavor)
-        key_lens = [(r.size + 3) // 4 for r in rows]
-        data_lens = data_len.tolist()
-        flat = torch.cat([keys[j, :k] for j, k in enumerate(key_lens)]
-                         + [data[j, :d] for j, d in enumerate(data_lens)])
-        parts = _split(flat.cpu().numpy(), key_lens + data_lens)
-        for j, i in enumerate(live):
-            out[i] = parts[j].tobytes() + parts[len(live) + j].tobytes()
+        streams = wire_streams(keys, data, [(r.size + 3) // 4 for r in rows],
+                               data_len.tolist())
+        for i, stream in zip(live, streams):
+            out[i] = stream
         return out
-
-    def _padded_rows(self, rows: list[np.ndarray]):
-        """One [B, Nmax] device tensor of the non-empty rows (Nmax a multiple
-        of 4) and their lengths. Each row's tail is left unset: the encoder
-        gives every value past lens[b] code 0 and no data bytes, which is
-        what the JAX backend's tail padding (its last sample repeated) was
-        for."""
-        counts = [r.size for r in rows]
-        width = -(-max(counts) // 4) * 4
-        flat = torch.from_numpy(np.concatenate(rows)).to(self.device)
-        x = torch.empty(len(rows), width, dtype=flat.dtype, device=self.device)
-        start = 0
-        for b, n in enumerate(counts):
-            x[b, :n] = flat[start:start + n]
-            start += n
-        lens = torch.tensor(counts, dtype=torch.int32, device=self.device)
-        return x, lens
 
     # -- decode ----------------------------------------------------------------
 

@@ -436,3 +436,19 @@ def corpus_of(kind: str, lengths, seed: int = 2025) -> list:
     """One read of ``kind`` content (``CORPUS_KINDS``) per length."""
     rng = np.random.default_rng(seed)
     return [CORPUS_KINDS[kind](rng, int(n)) for n in lengths]
+
+
+def pseudo_reads(n_reads: int = 256, seed: int = 21) -> list:
+    """The corpus driver's pseudo-read corpus, as ``make_corpus`` of the JAX
+    package's ``tools/check_corpus_chip.py`` makes it (after the reference
+    perf SignalGenerator, reference vbz/perf/test_data_generator.h:28-74):
+    int16 reads of 30,000-125,000 samples, a sigma-12 walk from 500 clipped
+    to +-2000. At the defaults: 40,528,974 raw bytes in buckets of 32768 (5
+    reads), 65536 (79) and 131072 (172)."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for _ in range(n_reads):
+        n = int(rng.integers(30_000, 125_000))
+        reads.append(np.clip(500 + np.cumsum(rng.normal(0, 12, n)),
+                             -2000, 2000).astype(np.int16))
+    return reads
