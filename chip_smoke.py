@@ -8,9 +8,9 @@ Run from the root of a checkout, with one CUDA card visible:
 Phases, each of which exits nonzero on failure (each prints its seconds):
   1. device: a CUDA card must be visible; prints nvidia-smi's name and
      power limit;
-  2. build: compiles the five kernel libraries from
+  2. build: compiles the six kernel libraries from
      vbz_compression_tpu_torch/csrc (the three codecs, the copy, the
-     probe), one nvcc per source, all at once;
+     probe, the match scan), one nvcc per source, all at once;
   3. kernels against their plain PyTorch versions on the card, bit for bit,
      one row of each case also against the port's NumPy oracle:
      E/D (W2) on the int16 tiers (B=4 rows of 4M), the int16 wrap
@@ -68,7 +68,20 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      gloo, over the pseudo-reads split into two in-memory files (which need
      no h5py; fast5 files and fast5vbz are checked by the CPU tests):
      identical global stats, and each .vbz file byte for byte the oracle's
-     frames of that file's reads.
+     frames of that file's reads;
+ 10. the own-tpu zstd stage: kernel M (the match scan) against its plain
+     version bit for bit on signals.match_cases, on the StreamVByte payload
+     of the clean tier's first 8 MiB chunk (5,243,482 bytes), on views of it
+     at storage offsets 1-3 and over 20 repeated calls; M timed there (L2
+     flushed and back to back) beside its plain version and its bound, and
+     the scan's copies timed apart; then two paths at cd_values (0,2,1,1)
+     with VBZ_ZSTD_ENCODER=own-tpu, each frame byte for byte the same call's
+     on the CPU with the plain scan: (a) the clean tier as 4 x 8 MiB chunks
+     through vbz_compress_sized_batch, timed host to host and split into
+     the scan (copy in, M, copy back) and the host's encoder, its frames'
+     size beside the own host matcher's; (b) compress_signals on the 256
+     pseudo-reads. E and M must launch on both (counts set to 0 just before
+     each path and read just after).
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -160,7 +173,8 @@ class Port:
         from vbz_compression_tpu_torch import api, bench, signals
         from vbz_compression_tpu_torch.models import codec
         from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1,
-                                                   svb_w2, svb_w4)
+                                                   svb_w2, svb_w4, zstd_match,
+                                                   zstd_seq)
         from vbz_compression_tpu_torch.parallel import multihost, sharded
         from vbz_compression_tpu_torch.tools import (capability_probe,
                                                      kernel_times)
@@ -171,6 +185,7 @@ class Port:
         self.build, self.bench, self.probe = _build, bench, capability_probe
         self.times = kernel_times
         self.probes, self.profiling, self.roofline = probes, profiling, roofline
+        self.match, self.zstd_seq = zstd_match, zstd_seq
         self.mods = {"w2": svb_w2, "w4": svb_w4, "v1": svb_v1}
         self.fns = {
             "w2": (svb_w2.encode_w2_rows, svb_w2.encode_w2_rows_plain,
@@ -186,6 +201,7 @@ class Port:
             m.ENCODE_LAUNCHES = 0
             m.DECODE_LAUNCHES = 0
         self.roofline.COPY_LAUNCHES = 0
+        self.match.LAUNCHES = 0
         for key in self.probes.LAUNCHES:
             self.probes.LAUNCHES[key] = 0
 
@@ -196,6 +212,7 @@ class Port:
             e_name, d_name = PAIRS[pair][0]
             out[e_name], out[d_name] = m.ENCODE_LAUNCHES, m.DECODE_LAUNCHES
         out["copy"] = self.roofline.COPY_LAUNCHES
+        out["match_scan"] = self.match.LAUNCHES
         out.update(self.probes.LAUNCHES)
         return out
 
@@ -711,7 +728,7 @@ def bench_path(port: Port, tier_rows: dict) -> tuple[dict, list]:
                           ("w2_encode", "w2_decode", "copy"))
     for line in lines:
         print("  " + json.dumps(line))
-    pipe, _, codec = lines
+    pipe, codec = lines[0], lines[-1]
     numbers = [v for v in codec.values() if isinstance(v, float)]
     if pipe["zstd_level"] not in (0, 1) or not all(
             np.isfinite(numbers)) or not codec["value"] > 0:
@@ -921,6 +938,162 @@ def two_process_run(port: Port, n_reads: int, frames: list) -> dict:
             "rank_s": [o["seconds"] for o in outs]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the own-tpu zstd stage
+# ---------------------------------------------------------------------------
+
+OWN_OPTIONS = (0, 2, 1, 1)  # the fast5 default, at zstd level 1
+MATCH = "vbz_compression_tpu/ops/zstd_match_tpu.py:37"
+
+
+def check_match(port: Port, clean: bytes) -> dict:
+    """M against its plain version on the same CUDA tensors: every case of
+    signals.match_cases, the clean payload, views of it 1-3 bytes into
+    their buffer, 20 repeated calls; then M's times (tools.kernel_times
+    match_times) on the clean payload, zeros and uniform bytes beside its
+    bound (N bytes read, 4N written), the plain version's time and the
+    scan's copies (payload in, int32 map back) on the host clock. Returns
+    M's numbers on the payload, and the others under "inputs"."""
+    torch, zm = port.torch, port.match
+    lib = port.build.lib("match")
+    cases = port.signals.match_cases(lib.vbz_match_tile(),
+                                     lib.vbz_match_halo())
+    cases.append(("clean payload", np.frombuffer(clean, np.uint8), None))
+    err = 0
+    for name, buf, offsets in cases:
+        offsets = zm.DEFAULT_OFFSETS if offsets is None else offsets
+        x = torch.from_numpy(buf.copy()).to(DEVICE)
+        got = zm.match_candidates(x, offsets)
+        want = zm.match_candidates_plain(x, offsets)
+        e = int((got.long() - want.long()).abs().max()) if buf.size else 0
+        torch.cuda.synchronize()
+        print(f"  match {name:24s} [{buf.size}]: max abs err {e}, "
+              f"{int((want > 0).sum())} candidates")
+        if e or got.dtype != torch.int32 or got.shape != want.shape:
+            raise SystemExit(f"kernel M differs from plain on {name!r}")
+        err = max(err, e)
+    x = torch.from_numpy(np.frombuffer(clean, np.uint8).copy()).to(DEVICE)
+    want = zm.match_candidates_plain(x)
+    for shift in (1, 2, 3):
+        if not torch.equal(zm.match_candidates(_shifted(x, shift)), want):
+            raise SystemExit(f"kernel M on a view {shift} bytes off its "
+                             "buffer's start differs from plain")
+    for _ in range(20):
+        if not torch.equal(zm.match_candidates(x), want):
+            raise SystemExit("kernel M: a repeated call gave other values")
+    print("  match clean payload at storage offsets 1-3 and 20 repeated "
+          "calls: equal to plain")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    inputs = port.times.match_times(flush, clean)
+    del flush
+    t = dict(inputs.pop("match payload"), max_abs_err=err, bound_by="bytes",
+             inputs=inputs)
+    print(f"  M on the clean payload [{t['n']}]: {t['ms']:.4f} ms cold, "
+          f"{t['warm_ms']:.4f} warm, plain {t['plain_ms']:.3f}, bound "
+          f"{t['bound_ms']:.5f}; copy in {min(t['copy_in_host_ms']):.3f} ms, "
+          f"map back {min(t['map_back_host_ms']):.3f} ms host to host "
+          "(pageable, best of 5); on zeros "
+          f"{inputs['match zeros']['ms']:.4f} ms cold, on uniform bytes "
+          f"{inputs['match uniform']['ms']:.4f}")
+    return t
+
+
+def scan_split(port: Port, payloads: list) -> dict:
+    """The own-tpu encoder per chunk payload, one after another: the scan
+    (the payload's copy to the card, M, the map's copy back) and the whole
+    frame, on the host clock; the host's part is their difference."""
+    torch, zm = port.torch, port.match
+    scan_s = frame_s = 0.0
+    for p in payloads:
+        buf = np.frombuffer(p, np.uint8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zm.match_candidates(torch.from_numpy(buf.copy()).to(DEVICE)).cpu()
+        t1 = time.perf_counter()
+        port.zstd_seq.compress_frame(p, matcher="device", device=DEVICE)
+        t2 = time.perf_counter()
+        scan_s, frame_s = scan_s + t1 - t0, frame_s + t2 - t1
+    return {"scan_s": scan_s, "frame_s": frame_s,
+            "host_s": frame_s - scan_s}
+
+
+def own_tpu_paths(port: Port, chunks: list, reads: list) -> list:
+    """(a) the clean chunks through the batch API and (b) the pseudo-reads
+    through compress_signals at OWN_OPTIONS with VBZ_ZSTD_ENCODER=own-tpu:
+    E and M launched, every frame the same call's on the CPU with the plain
+    scan. Returns the two runs."""
+    api, torch, pkg = port.api, port.torch, port.pkg
+    opts = pkg.CompressionOptions.from_cd_values(OWN_OPTIONS)
+    cpu = port.codec.TorchSvbBackend("cpu")
+    with port.bench.encoder_env("own-tpu"):
+        torch.cuda.synchronize()
+        port.zero_counts()
+        t0 = time.perf_counter()
+        frames = api.vbz_compress_sized_batch(chunks, opts)
+        first_s = time.perf_counter() - t0
+        launches_a = port.counts()
+        port.require_launched("own-tpu batch API", launches_a,
+                              ("w2_encode", "match_scan"))
+        enc_s = first_s
+        for _ in range(REPEATS - 1):
+            t0 = time.perf_counter()
+            again = api.vbz_compress_sized_batch(chunks, opts)
+            enc_s = min(enc_s, time.perf_counter() - t0)
+            if again != frames:
+                raise SystemExit("own-tpu batch API: a repeated call gave "
+                                 "other frames")
+        if frames != api.vbz_compress_sized_batch(chunks, opts, backend=cpu):
+            raise SystemExit("own-tpu batch API: frames differ from the "
+                             "CPU path's (plain scan)")
+        payloads = port.codec.TorchSvbBackend(DEVICE).svb_compress_batch(
+            chunks, 2, True, 0)
+        split = scan_split(port, [bytes(p) for p in payloads])
+        torch.cuda.synchronize()
+        port.zero_counts()
+        t0 = time.perf_counter()
+        corpus = port.multihost.compress_signals(reads, opts)
+        corpus_s = time.perf_counter() - t0
+        launches_b = port.counts()
+        port.require_launched("own-tpu corpus driver", launches_b,
+                              ("w2_encode", "match_scan"))
+        if corpus != port.multihost.compress_signals(reads, opts,
+                                                     device="cpu"):
+            raise SystemExit("own-tpu corpus driver: frames differ from the "
+                             "CPU path's (plain scan)")
+    with port.bench.encoder_env("own"):
+        host_frames = api.vbz_compress_sized_batch(chunks, opts)
+    for f, c in zip(frames + corpus, chunks + reads):
+        # The sized header (the raw size), then the zstd magic number.
+        if (f[:4] != np.uint32(c.nbytes).tobytes()
+                or f[4:8] != bytes.fromhex("28b52ffd")):
+            raise SystemExit("own-tpu: a frame is not a sized zstd frame")
+    raw = sum(c.nbytes for c in chunks)
+    run_a = {"path": f"own-tpu batch API {OWN_OPTIONS}", "chunks": len(chunks),
+             "bytes": raw, "frame_bytes": sum(map(len, frames)),
+             "own_host_frame_bytes": sum(map(len, host_frames)),
+             "payload_bytes": sum(map(len, payloads)),
+             "launches": {k: v for k, v in launches_a.items() if v},
+             "enc_s": enc_s, "enc_gb_s": raw / enc_s / 1e9, **split}
+    raw_b = sum(r.nbytes for r in reads)
+    run_b = {"path": f"own-tpu corpus driver {OWN_OPTIONS}",
+             "reads": len(reads), "bytes": raw_b,
+             "frame_bytes": sum(map(len, corpus)),
+             "launches": {k: v for k, v in launches_b.items() if v},
+             "host_to_host_s": corpus_s, "gb_s": raw_b / corpus_s / 1e9}
+    print(f"  own-tpu batch API {OWN_OPTIONS}: {len(chunks)} chunks, {raw} "
+          f"bytes -> {run_a['frame_bytes']} framed (own host matcher "
+          f"{run_a['own_host_frame_bytes']}); frames equal the CPU path's; "
+          f"launches {run_a['launches']}; encode {enc_s:.3f} s host to host "
+          f"({run_a['enc_gb_s']:.4f} GB/s, best of {REPEATS}); per chunk in "
+          f"turn: scan {split['scan_s']:.3f} s, host {split['host_s']:.3f} "
+          f"s of {split['frame_s']:.3f} s")
+    print(f"  own-tpu compress_signals {OWN_OPTIONS}: {len(reads)} reads, "
+          f"{raw_b} bytes -> {run_b['frame_bytes']} framed; frames equal the "
+          f"CPU path's; launches {run_b['launches']}; {corpus_s:.3f} s host "
+          f"to host ({run_b['gb_s']:.4f} GB/s, one call)")
+    return [run_a, run_b]
+
+
 def main() -> int:
     import torch
 
@@ -1032,6 +1205,14 @@ def main() -> int:
     runs.append(two_process_run(port, len(pseudo),
                                 oracle_frames[CORPUS_PATHS[0][0]]))
     lap("9 corpus paths")
+
+    # Phase 10: the own-tpu zstd stage.
+    print("own-tpu zstd stage:")
+    clean_chunks = list(tier_rows["clean"])
+    match = check_match(port, port.pkg.oracle.svb_compress(
+        clean_chunks[0], 2, True, 0))
+    runs += own_tpu_paths(port, clean_chunks, pseudo)
+    lap("10 own-tpu zstd stage")
     for mod in ("jax", "vbz_compression_tpu"):
         if mod in sys.modules or any(m.startswith(mod + ".")
                                      for m in sys.modules):
@@ -1068,7 +1249,18 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "warm_ms": t["warm_ms"],
             "timed_on": f"{t['timed_on']}, L2 flushed before the call"})
+    kernels.append({
+        "name": "match_scan", "route": "cuda",
+        "source": "vbz_compression_tpu_torch/csrc/match_scan.cu",
+        "replaces": MATCH, "launches": launched("match_scan"),
+        "max_abs_err": match["max_abs_err"], "ms": match["ms"],
+        "plain_ms": match["plain_ms"], "bound_ms": match["bound_ms"],
+        "bound_by": match["bound_by"], "library_ms": None,
+        "warm_ms": match["warm_ms"],
+        "timed_on": f"the clean tier's first chunk's payload [{match['n']}] "
+                    "uint8, L2 flushed before the call"})
     print(json.dumps({"times": times, "main_paths": runs, "aux": aux,
+                      "match": match,
                       "bench": bench_lines,
                       "probe_device_ops": probe_result["device_ops"],
                       "card": smi, "seconds": seconds}))

@@ -169,10 +169,12 @@ def test_sizes_and_encoder_choice(monkeypatch):
             12345 * 4, PortOptions.from_cd_values(cd)) == \
             jax_api.vbz_max_compressed_size(
                 12345 * 4, CompressionOptions.from_cd_values(cd))
+    monkeypatch.setenv("VBZ_BACKEND", "torch")
     for encoder in ("own", "own-tpu"):
         monkeypatch.setenv("VBZ_ZSTD_ENCODER", encoder)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            api.zstd_compress(b"abc", 1)
+        frame = api.zstd_compress(b"abc" * 99, 1)
+        assert frame != api.zstd_compress(b"abc" * 99, 1, "libzstd")
+        assert api.zstd_decompress(frame, 297) == b"abc" * 99
     monkeypatch.setenv("VBZ_ZSTD_ENCODER", "libzstd")
     assert api.zstd_decompress(api.zstd_compress(b"abc" * 99, 1), 297) == \
         b"abc" * 99
@@ -192,7 +194,8 @@ def test_import_leaves_jax_out():
             "'utils.profiling', 'tools.capability_probe', 'models.codec', "
             "'parallel.sharded', 'parallel.multihost', 'parallel.dryrun', "
             "'utils.hdf5_chunks', 'tools.fast5vbz', 'tools.multihost_smoke', "
-            "'tools.corpus_times'}\n"
+            "'tools.corpus_times', 'ops.fse', 'ops.zstd_huff', "
+            "'ops.zstd_seq', 'ops.zstd_match'}\n"
             "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
             "assert not missing, missing\n"
             "chip_smoke.Port()\n"

@@ -153,6 +153,33 @@ def test_json_lines_carry_bench_py_metric_names():
         assert json.loads(json.dumps(obj)) == obj
 
 
+def test_own_encoder_line_follows_the_installed_package(monkeypatch):
+    """The own encoder's line has the root bench.py's metric name and
+    keys; it is measured at level 1 (zstandard decodes its frames) and
+    listed as not measured, with the reason, at level 0."""
+    own = {"enc": 0.02, "dec": 0.5, "combined": bench._hm(0.02, 0.5),
+           "bytes": 630, "input_bytes": 1000, "zstd_level": 1}
+    pipe = dict(own, bytes=600)
+    line = bench.own_line(own, pipe)
+    assert line["metric"] == "int16_signal_pipeline_own_encoder"
+    assert line["value"] == own["combined"] and line["unit"] == "GB/s"
+    assert line["size_vs_libzstd"] == pytest.approx(1.05)
+    assert json.loads(json.dumps(line)) == line
+    assert set(bench.not_measured(1)) == {"vs_baseline"}
+    assert bench.not_measured(0) == bench.NOT_MEASURED
+    assert "zstandard" in bench.not_measured(0)[bench.OWN_LINE]
+    monkeypatch.setenv("VBZ_ZSTD_ENCODER", "own-tpu")
+    with bench.encoder_env("own"):
+        assert os.environ["VBZ_ZSTD_ENCODER"] == "own"
+    assert os.environ["VBZ_ZSTD_ENCODER"] == "own-tpu"
+    monkeypatch.delenv("VBZ_ZSTD_ENCODER")
+    with bench.encoder_env("own"):
+        pass
+    with bench.encoder_env(None):
+        assert "VBZ_ZSTD_ENCODER" not in os.environ
+    assert "VBZ_ZSTD_ENCODER" not in os.environ
+
+
 def test_zstd_level_follows_the_installed_package(monkeypatch):
     import importlib.util
 

@@ -5,7 +5,10 @@ V1E/V1D (tile edges, uniform codes, V1E's half-byte carried across empty
 tiles, short data rows, views off alignment, repeated calls);
 the copy kernel CP and the capability probe's kernels against their plain
 versions, the prefix sum also on tile edges and in repeated calls; the
-data-parallel plane and the corpus driver against the oracle. Exact.
+data-parallel plane and the corpus driver against the oracle; the match
+scan M against its plain version (``signals.match_cases``, the clean
+payload, views off alignment, repeated calls) and the own-tpu zstd stage's
+frames against the CPU path's. Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -21,7 +24,7 @@ import torch
 from vbz_compression_tpu_torch import CompressionOptions, api, oracle, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
 from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1, svb_w2,
-                                           svb_w4)
+                                           svb_w4, zstd_match, zstd_seq)
 from vbz_compression_tpu_torch.parallel import multihost, sharded
 from vbz_compression_tpu_torch.tools import capability_probe, kernel_times
 from vbz_compression_tpu_torch.utils import roofline
@@ -588,3 +591,100 @@ def test_plane_in_world1_nccl_group_on_card(cuda_device):
     assert int(total) == int(alone[2]) == int(stream_lens.sum())
     assert bool(ok.all()) and ok.shape == (4,)
     assert int(rows_total) == int(data_len.sum()) + 4 * 8192 // 4
+
+
+def _match_cases():
+    lib = _build.lib("match")
+    return [(name, buf, zstd_match.DEFAULT_OFFSETS if o is None else o)
+            for name, buf, o in signals.match_cases(lib.vbz_match_tile(),
+                                                    lib.vbz_match_halo())]
+
+
+@pytest.mark.cuda
+def test_match_scan_matches_plain_on_card(cuda_device):
+    """M on every case of signals.match_cases (tile and halo edges, n around
+    o + 4, unsorted offsets, offsets past the halo) equals the plain scan,
+    one launch per non-empty buffer."""
+    cases = _match_cases()
+    before = zstd_match.LAUNCHES
+    for name, buf, offsets in cases:
+        x = torch.from_numpy(buf.copy()).to(cuda_device)
+        got = zstd_match.match_candidates(x, offsets)
+        assert got.dtype == torch.int32 and got.shape == (buf.size,), name
+        assert torch.equal(got, zstd_match.match_candidates_plain(
+            x, offsets)), name
+    torch.cuda.synchronize()
+    assert zstd_match.LAUNCHES - before == sum(b.size > 0 for _, b, _ in cases)
+
+
+@pytest.mark.cuda
+def test_match_scan_clean_payload_on_card(cuda_device):
+    """M on the clean chunk's 5,243,482-byte payload, on views of it 1-3
+    bytes into their buffer and over 20 repeated calls equals the plain
+    scan; build_match_index_device on the card equals it on the CPU."""
+    payload = np.frombuffer(signals.clean_payload(), np.uint8)
+    x = torch.from_numpy(payload.copy()).to(cuda_device)
+    want = zstd_match.match_candidates_plain(x)
+    for shift in (0, 1, 2, 3):
+        view = torch.empty(x.numel() + shift, dtype=torch.uint8,
+                           device=cuda_device)[shift:]
+        view.copy_(x)
+        assert torch.equal(zstd_match.match_candidates(view), want), shift
+    for _ in range(20):
+        assert torch.equal(zstd_match.match_candidates(x), want)
+    small = payload[:200_003]
+    on_card = zstd_match.build_match_index_device(small, device=cuda_device)
+    on_cpu = zstd_match.build_match_index_device(small, device="cpu")
+    for got, ref in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_own_tpu_frames_match_cpu_on_card(cuda_device, monkeypatch):
+    """VBZ_ZSTD_ENCODER=own-tpu through the batch API and the corpus driver
+    on the card at (0,2,1,1): the frames of the same calls on the CPU, M
+    launched once per chunk payload of 4 bytes or more."""
+    monkeypatch.setenv("VBZ_ZSTD_ENCODER", "own-tpu")
+    opts = CompressionOptions.from_cd_values((0, 2, 1, 1))
+    reads = signals.pseudo_reads(6) + [np.zeros(0, np.int16),
+                                       np.arange(3, dtype=np.int16)]
+    before = zstd_match.LAUNCHES
+    frames = api.vbz_compress_sized_batch(
+        reads, opts, backend=TorchSvbBackend(cuda_device))
+    assert zstd_match.LAUNCHES - before == 7
+    assert frames == api.vbz_compress_sized_batch(
+        reads, opts, backend=TorchSvbBackend("cpu"))
+    assert multihost.compress_signals(reads, opts, device=cuda_device) == \
+        multihost.compress_signals(reads, opts, device="cpu")
+    data = signals.clean_payload()[:300_000]
+    assert zstd_seq.compress_frame(data, "device", cuda_device) == \
+        zstd_seq.compress_frame(data, "device", "cpu")
+
+
+@pytest.mark.cuda
+def test_match_scan_from_threads_on_card(cuda_device):
+    """M launched from more threads than cores at once, with a short switch
+    interval: every result equals the plain scan's and no launch is lost
+    from the count (the batch API's zstd stage launches from a pool)."""
+    import os
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    bufs = [torch.from_numpy(np.resize(b, 200_000 + 7 * i)).to(cuda_device)
+            for i, (_, b, _) in enumerate(_match_cases()[:6]) if b.size]
+    want = [zstd_match.match_candidates_plain(x) for x in bufs]
+    calls = 8 * len(bufs)
+    before = zstd_match.LAUNCHES
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(2 * (os.cpu_count() or 1)) as pool:
+            futures = [pool.submit(zstd_match.match_candidates,
+                                   bufs[k % len(bufs)])
+                       for k in range(calls)]
+            got = [f.result(timeout=120) for f in futures]
+    finally:
+        sys.setswitchinterval(interval)
+    for k, g in enumerate(got):
+        assert torch.equal(g, want[k % len(bufs)]), k
+    assert zstd_match.LAUNCHES - before == calls

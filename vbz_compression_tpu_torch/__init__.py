@@ -2,9 +2,9 @@
 
 The port of ``vbz_compression_tpu`` from JAX on a TPU to PyTorch on an
 NVIDIA H100. It keeps its own copies of the host modules (options, errors,
-the NumPy oracle, the zstd stage and the sized framing) and replaces the
-Pallas kernels with CUDA kernels built from ``csrc/``; it imports nothing of
-the JAX package. Entry points are in :mod:`.api`. ``oracle`` is the NumPy
+the NumPy oracle, the zstd stage with the from-scratch encoder, and the
+sized framing) and replaces the Pallas kernels with CUDA kernels built from
+``csrc/``; it imports nothing of the JAX package. Entry points are in :mod:`.api`. ``oracle`` is the NumPy
 StreamVByte codec (:mod:`.ops.scalar`): a backend the api accepts as
 ``backend=`` and the reference the port is checked against.
 """

@@ -4,10 +4,12 @@ surface, in Python.
 The port's own copy of the pipeline in ``vbz_compression_tpu.api`` (the
 reference ``vbz/vbz.cpp``): option validation, v0/v1 version dispatch, the
 optional StreamVByte stage, the optional zstd stage (host-side libzstd
-through the ``zstandard`` package, imported when a level above 0 is used)
-and the 4-byte little-endian sized framing. The StreamVByte stage is the
-``backend=`` argument: a :class:`~.models.codec.TorchSvbBackend`, or any
-object with the same methods, such as the NumPy oracle (``oracle``).
+through the ``zstandard`` package, imported when a level above 0 is used,
+or the from-scratch RFC 8878 encoder of ``ops.zstd_seq`` that
+``VBZ_ZSTD_ENCODER`` chooses) and the 4-byte little-endian sized framing.
+The StreamVByte stage is the ``backend=`` argument: a
+:class:`~.models.codec.TorchSvbBackend`, or any object with the same
+methods, such as the NumPy oracle (``oracle``).
 
 ``default_backend()`` is the CUDA backend when a card is visible. Setting
 ``VBZ_BACKEND=torch`` chooses the plain PyTorch version on the CPU instead.
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import os
 import struct
+import warnings
 
 import numpy as np
 import torch
@@ -29,7 +32,7 @@ from .errors import (
     VbzError,
 )
 from .models.codec import TorchSvbBackend
-from .ops import scalar
+from .ops import scalar, zstd_match, zstd_seq
 from .options import CompressionOptions
 
 SIZED_HEADER_BYTES = 4  # VbzSizedHeader{uint32 original_size}, vbz/vbz.cpp:52-55
@@ -69,18 +72,58 @@ def zstd_compress_bound(source_size: int) -> int:
     return source_size + (source_size >> 8) + margin
 
 
-def zstd_compress(data: bytes, level: int) -> bytes:
-    """zstd stage through libzstd (the ``zstandard`` package), with the tuned
-    level-1 dfast profile below. ``VBZ_ZSTD_ENCODER``, where set, must be
-    "libzstd": the JAX package's from-scratch encoders ("own", "own-tpu")
-    are not ported yet."""
-    encoder = os.environ.get("VBZ_ZSTD_ENCODER", "libzstd")
-    if encoder in ("own", "own-tpu"):
-        raise NotImplementedError(
-            f"VBZ_ZSTD_ENCODER={encoder!r}: the from-scratch zstd encoders "
-            "are not ported yet (ROADMAP Queue 1 item 9)")
+ZSTD_ENCODERS = ("libzstd", "own", "own-tpu")
+
+
+def zstd_encoder(encoder: str | None = None) -> str:
+    """``encoder``, else ``VBZ_ZSTD_ENCODER``, else "libzstd"; raises
+    ``ValueError`` for a name outside :data:`ZSTD_ENCODERS`."""
+    encoder = encoder or os.environ.get("VBZ_ZSTD_ENCODER", "libzstd")
+    if encoder not in ZSTD_ENCODERS:
+        raise ValueError(f"unknown zstd encoder {encoder!r} (want one of "
+                         f"{ZSTD_ENCODERS})")
+    return encoder
+
+
+def scan_device(backend=None) -> torch.device:
+    """The device of the "own-tpu" match scan: the backend's where it has
+    one, else :func:`default_backend`'s (the card, or the CPU under
+    ``VBZ_BACKEND=torch``; it raises with neither)."""
+    device = getattr(backend, "device", None)
+    if device is None:
+        device = default_backend().device
+    return torch.device(device)
+
+
+def zstd_compress(data: bytes, level: int, encoder: str | None = None, *,
+                  device=None) -> bytes:
+    """zstd stage. ``encoder`` (or env ``VBZ_ZSTD_ENCODER``):
+    - "libzstd" (default): the zstandard package, with the tuned level-1
+      dfast profile below;
+    - "own": the from-scratch RFC 8878 encoder (:mod:`.ops.zstd_seq` —
+      Huffman literals + LZ77 matches + FSE sequences), hash index on the
+      host;
+    - "own-tpu": the same, with the match scan on ``device``
+      (:mod:`.ops.zstd_match`: kernel M on the card, its plain version on
+      the CPU; :func:`scan_device` when ``device`` is None). The JAX
+      package's name, so a deployment's environment carries over.
+    All three emit frames any stock zstd decoder reads.
+
+    The from-scratch encoders are single-profile (roughly a level-1 work
+    factor) and **ignore** ``level``, with a warning when a level above 1
+    was asked for."""
+    encoder = zstd_encoder(encoder)
     if encoder != "libzstd":
-        raise ValueError(f"unknown zstd encoder {encoder!r} (want libzstd)")
+        if int(level) > 1:
+            warnings.warn(
+                f"zstd level {level} requested but the '{encoder}' encoder "
+                "is single-profile (~level 1); level is ignored",
+                stacklevel=2)
+        if encoder == "own":
+            return zstd_seq.compress_frame(bytes(data), matcher="host")
+        return zstd_seq.compress_frame(
+            bytes(data), matcher="device",
+            device=scan_device() if device is None else device)
     import zstandard
 
     level = max(min(int(level), zstandard.MAX_COMPRESSION_LEVEL), -131072)
@@ -129,6 +172,17 @@ def zstd_decompress(data: bytes, expected_size: int) -> bytes:
         raise VbzError(VBZ_ZSTD_ERROR, str(exc))
 
 
+def _own_scan_device(backend):
+    """The match scan's device for this backend when the zstd stage is
+    "own-tpu", with kernel M loaded before any thread launches it; None
+    for the other encoders."""
+    if zstd_encoder() != "own-tpu":
+        return None
+    device = scan_device(backend)
+    zstd_match.preload(device)
+    return device
+
+
 def _map_zstd(fn, items: list) -> list:
     """Run the host zstd stage across chunks on a thread pool (libzstd
     releases the GIL); a plain loop for one chunk or one core."""
@@ -172,7 +226,8 @@ def vbz_compress(data, options: CompressionOptions, backend=None) -> bytes:
             options.vbz_version))
     if options.zstd_compression_level == 0:
         return current
-    return zstd_compress(current, options.zstd_compression_level)
+    return zstd_compress(current, options.zstd_compression_level,
+                         device=_own_scan_device(backend))
 
 
 def _check_destination(size: int, options: CompressionOptions) -> int:
@@ -262,8 +317,10 @@ def vbz_compress_sized_batch(chunks, options: CompressionOptions,
             current = [backend.svb_compress(r, *args) for r in raws]
         current = [bytes(x) for x in current]
     if options.zstd_compression_level != 0:
+        device = _own_scan_device(backend)
         current = _map_zstd(
-            lambda x: zstd_compress(x, options.zstd_compression_level),
+            lambda x: zstd_compress(x, options.zstd_compression_level,
+                                    device=device),
             current)
     return [h + bytes(x) for h, x in zip(headers, current)]
 

@@ -22,11 +22,16 @@ A port of the root ``bench.py`` (its ``tpu_codec_gbps`` and
 - pipeline: ``api.vbz_compress_sized_batch`` / ``vbz_decompress_sized_batch``
   on the clean tier as 4 chunks of 8 MiB, host bytes to host bytes through
   the CUDA backend, at zstd level 1 where ``zstandard`` is installed and
-  level 0 where it is not; the line names the level.
+  level 0 where it is not; the line names the level;
+- own encoder: the same pipeline with the from-scratch zstd encoder
+  (``VBZ_ZSTD_ENCODER=own``, the root ``bench.py``'s
+  ``int16_signal_pipeline_own_encoder``), decoded through ``zstandard``;
+  where that package is missing the line is not measured, and
+  ``not_measured`` says why.
 
 Prints the card's name and power limit, then JSON lines with ``bench.py``'s
-metric names: the pipeline, what is not measured yet and why, and the codec
-headline last.
+metric names: the pipeline, the own encoder's where it is measured, what is
+not measured and why, and the codec headline last.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import argparse
 import contextlib
 import importlib.util
 import json
+import os
 import sys
 import time
 
@@ -51,12 +57,14 @@ TIERS = ("clean", "mixed", "pure", "hard")
 CALLS = 10                  # calls back to back per timed run
 PIPELINE_CHUNKS = 4         # the clean tier as 4 x 8 MiB chunks
 PIPELINE_REPS = 5
+OWN_REPS = 3                # the own encoder's line, as bench.py
 FLUSH_BYTES = 256 << 20     # zeroed before a cold call: over 5x the L2
 
+OWN_LINE = "int16_signal_pipeline_own_encoder"
 NOT_MEASURED = {
-    "int16_signal_pipeline_own_encoder":
-        "the from-scratch zstd encoder is not ported yet (ROADMAP Queue 1 "
-        "item 9)",
+    OWN_LINE:
+        "the own encoder's level-1 frames decode through the zstandard "
+        "package, which is not installed here",
     "vs_baseline":
         "the reference codec's bench (native/ref_bench) builds from the "
         "reference's sources, which a checkout of this repository does not "
@@ -154,21 +162,44 @@ def zstd_level() -> int:
     return 1 if importlib.util.find_spec("zstandard") is not None else 0
 
 
+@contextlib.contextmanager
+def encoder_env(encoder: str | None):
+    """``VBZ_ZSTD_ENCODER`` set to ``encoder`` for the block (the batch
+    API's threaded zstd stage reads it), and put back after; None leaves it
+    as it is."""
+    if encoder is None:
+        yield
+        return
+    prev = os.environ.get("VBZ_ZSTD_ENCODER")
+    os.environ["VBZ_ZSTD_ENCODER"] = encoder
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("VBZ_ZSTD_ENCODER")
+        else:
+            os.environ["VBZ_ZSTD_ENCODER"] = prev
+
+
 def pipeline_gbps(clean: np.ndarray, backend: TorchSvbBackend,
-                  level: int) -> dict:
+                  level: int, encoder: str | None = None,
+                  reps: int = PIPELINE_REPS) -> dict:
     """Host-to-host GB/s of the batch API on ``clean`` as PIPELINE_CHUNKS
-    chunks, best of PIPELINE_REPS, round trip checked."""
+    chunks, best of ``reps``, round trip checked; ``encoder`` (a
+    ``VBZ_ZSTD_ENCODER`` value) for the zstd stage where given."""
     _require_card(torch.device(backend.device))
     chunks = list(clean.reshape(PIPELINE_CHUNKS, -1))
     total = clean.nbytes
     opts = CompressionOptions(True, 2, level, 0)
-    frames = api.vbz_compress_sized_batch(chunks, opts, backend=backend)
     enc_s = dec_s = float("inf")
-    for _ in range(PIPELINE_REPS):
-        t0 = time.perf_counter()
+    with encoder_env(encoder):
         frames = api.vbz_compress_sized_batch(chunks, opts, backend=backend)
-        enc_s = min(enc_s, time.perf_counter() - t0)
-    for _ in range(PIPELINE_REPS):
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            frames = api.vbz_compress_sized_batch(chunks, opts,
+                                                  backend=backend)
+            enc_s = min(enc_s, time.perf_counter() - t0)
+    for _ in range(reps):
         t0 = time.perf_counter()
         outs = api.vbz_decompress_sized_batch(frames, opts, backend=backend)
         dec_s = min(dec_s, time.perf_counter() - t0)
@@ -187,6 +218,22 @@ def pipeline_line(pipe: dict) -> dict:
             "zstd_level": pipe["zstd_level"],
             "encode_gb_s": pipe["enc"], "decode_gb_s": pipe["dec"],
             "ratio": pipe["bytes"] / pipe["input_bytes"]}
+
+
+def own_line(own: dict, pipe: dict) -> dict:
+    """The own encoder's pipeline line, its frames' size against the
+    libzstd pipeline's (``pipe``, the same level)."""
+    return {"metric": OWN_LINE, "value": own["combined"], "unit": "GB/s",
+            "zstd_level": own["zstd_level"], "encoder": "own",
+            "encode_gb_s": own["enc"], "decode_gb_s": own["dec"],
+            "size_vs_libzstd": own["bytes"] / pipe["bytes"]}
+
+
+def not_measured(level: int) -> dict:
+    """What the run leaves out and why: NOT_MEASURED, less the own
+    encoder's line at level 1, where ``zstandard`` decodes its frames."""
+    return {k: v for k, v in NOT_MEASURED.items()
+            if not (level and k == OWN_LINE)}
 
 
 def codec_line(tiers: dict, copy_gb_s: float, device_name: str) -> dict:
@@ -225,16 +272,23 @@ def run(rows: dict | None = None, passes: int = 3) -> list[dict]:
     device = torch.device("cuda")
     _require_card(device)
     rows = tier_rows() if rows is None else rows
+    level = zstd_level()
+    lines = []
     with profiling.annotate("pipeline"):
-        pipe = pipeline_gbps(rows["clean"], TorchSvbBackend(device),
-                             zstd_level())
+        pipe = pipeline_gbps(rows["clean"], TorchSvbBackend(device), level)
+    lines.append(pipeline_line(pipe))
+    if level:
+        with profiling.annotate("pipeline, own encoder"):
+            own = pipeline_gbps(rows["clean"], TorchSvbBackend(device), level,
+                                "own", OWN_REPS)
+        lines.append(own_line(own, pipe))
     with profiling.annotate("codec tiers"):
         tiers = measure_tiers(rows, passes)
     with profiling.annotate("copy bandwidth"):
         copy_gb_s = roofline.measure_copy_gbps()
     roofline_shares(tiers, copy_gb_s)
     line = codec_line(tiers, copy_gb_s, torch.cuda.get_device_name(0))
-    return [pipeline_line(pipe), {"not_measured": NOT_MEASURED}, line]
+    return [*lines, {"not_measured": not_measured(level)}, line]
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Each source of ``SOURCES`` (the three codecs, ``copy.cu`` and
-``probe.cu``) is compiled by ``nvcc`` into a shared library of its own with
-a plain C interface, ``libvbz_<name>.so``, and loaded with :mod:`ctypes`,
-so no PyTorch headers are compiled. The headers
+Each source of ``SOURCES`` (the three codecs, ``copy.cu``, ``probe.cu``
+and the match scan ``match_scan.cu``) is compiled by ``nvcc`` into a shared
+library of its own with a plain C interface, ``libvbz_<name>.so``, and
+loaded with :mod:`ctypes`, so no PyTorch headers are compiled. The headers
 (``csrc/*.cuh``) are part of every library's content hash, so editing one
 rebuilds all of them. Libraries land in
 ``build/torch_kernels/<hash>/libvbz_<name>.so`` at the root of the checkout,
@@ -34,7 +34,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # library -> its source in csrc/.
 SOURCES = {"w2": "w2_codec.cu", "w4": "w4_codec.cu", "v1": "v1_codec.cu",
-           "copy": "copy.cu", "probe": "probe.cu"}
+           "copy": "copy.cu", "probe": "probe.cu", "match": "match_scan.cu"}
 # library -> entry point -> argtypes; every entry point returns a
 # cudaError_t as int.
 _SIGNATURES = {
@@ -91,6 +91,12 @@ _SIGNATURES = {
         "vbz_probe_fetch_i8": [_P, _P, _L, _P],
         # x, out, scratch, n, stages, elem_bytes, stream
         "vbz_probe_butterfly": [_P, _P, _P, _L, _I, _I, _P],
+    },
+    "match": {
+        "vbz_match_tile": [],
+        "vbz_match_halo": [],
+        # buf, off, n, offsets (a host int32 array), n_offsets, stream
+        "vbz_match_candidates": [_P, _P, _L, _P, _I, _P],
     },
 }
 NAMES = tuple(_SIGNATURES)

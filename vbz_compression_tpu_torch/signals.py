@@ -3,8 +3,8 @@ numpy from a seed: the ``bench.py`` tiers as B rows of N int16 (its
 ``clean`` and ``mixed`` tiers byte for byte, through :func:`gen_signal`),
 a corpus of reads of log-uniform length, content for the other flavors
 (int32, int8 and unsigned signals, uniform noise, the v1 odd-nibble
-pattern), and the inputs that carry the look-back of W2, W4 and v1 across
-tile edges."""
+pattern), the inputs that carry the look-back of W2, W4 and v1 across
+tile edges, and the match scan's cases and the clean chunk's payload."""
 
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import ctypes
 import functools
 
 import numpy as np
+
+from .ops import scalar
 
 # bench.py's workload arguments (bench.py:75-76): MB, sigma, lo, hi, seed.
 CLEAN_ARGS = (32, 12, 0, 2000, 42)
@@ -452,3 +454,54 @@ def pseudo_reads(n_reads: int = 256, seed: int = 21) -> list:
         reads.append(np.clip(500 + np.cumsum(rng.normal(0, 12, n)),
                              -2000, 2000).astype(np.int16))
     return reads
+
+
+def clean_payload() -> bytes:
+    """The StreamVByte payload (zz16, v0) of the clean tier's first 8 MiB
+    chunk, the first chunk of the bench's pipeline: 5,243,482 bytes, the
+    input the zstd stage's match scan gets there."""
+    return scalar.svb_compress(TIERS["clean"](1, 4 << 20)[0], 2, True, 0)
+
+
+def match_cases(tile: int, halo: int) -> list:
+    """(name, buf uint8 [n], offsets, None for the default list) for the
+    bounded-offset match scan, whose kernel takes positions in tiles of
+    ``tile`` and holds ``halo`` bytes behind a tile: the svb payload of the JAX
+    match tests (seed 5, 30,000 samples) and the three inputs of their frame
+    round trip; random bytes, where almost nothing matches; an all-zero
+    buffer, where every position from 1 on matches at offset 1; lengths just
+    below and above o + 4 for o = 1 and 1024 (a 1024-byte random period, so
+    only offset 1024 matches), on tile edges and below 4; an unsorted offset
+    list whose first too-large offset stops the list before later small ones,
+    and offsets past the halo on a 5000-byte period."""
+    rng = np.random.default_rng(5)
+    sig = np.clip(500 + np.cumsum(rng.normal(0, 12, 30000)), -2000,
+                  2000).astype(np.int16)
+    svb = np.frombuffer(scalar.svb_compress(sig, 2, True, 0), np.uint8)
+    rng = np.random.default_rng(8)
+    period = rng.integers(0, 256, 1024).astype(np.uint8)
+    far = rng.integers(0, 256, 5000).astype(np.uint8)
+    cases = [
+        ("svb payload", svb, None),
+        ("small repeat", np.frombuffer(b"abcabcabcabc", np.uint8),
+         None),
+        ("text", np.frombuffer(
+            b"the quick brown fox jumps over the lazy dog. " * 1000,
+            np.uint8), None),
+        ("periodic", np.tile(np.arange(64, dtype=np.uint8), 1500),
+         None),
+        ("random", rng.integers(0, 256, 3 * tile + 5).astype(np.uint8),
+         None),
+        ("all zero", np.zeros(2 * tile + 7, np.uint8), None),
+    ]
+    for n in (0, 1, 3, 4, 5, 6, 1027, 1028, 1029, tile - 1, tile + 1,
+              2 * tile + 3):
+        cases.append((f"period 1024, n={n}",
+                      np.resize(period, n).astype(np.uint8), None))
+    too_far = 3 * tile + halo
+    cases.append(("unsorted offsets", svb[:3 * tile].copy(),
+                  (7, 3, halo + 904, 1, too_far, 2, 4)))
+    cases.append(("offsets past the halo",
+                  np.resize(far, 3 * tile + halo).astype(np.uint8),
+                  (2, 5000, 1, halo + 4, 3)))
+    return cases

@@ -4,7 +4,7 @@ library call beside it, for comparing two trees.
 Run with one CUDA card visible, from the root of a checkout:
 
     python -m vbz_compression_tpu_torch.tools.kernel_times [--out FILE]
-        [--only w2|w4|v1|probe ...]
+        [--only w2|w4|v1|probe|match ...]
 
 The script calls only what every version of the port since the one-pass E
 and D has (the ``svb_w2``, ``svb_w4`` and ``svb_v1`` wrappers,
@@ -16,7 +16,8 @@ count of ``utils.roofline``). Run by path, it imports the package that
 kernels on the same inputs; to compare two trees, run them in turns (A, B,
 B, A) on one card, one after the other. ``chip_smoke.py`` phase 5 times the
 same codec inputs (it takes ``w4_rows`` and ``codec2_rows`` from here), but
-only with its own checkout's kernels.
+only with its own checkout's kernels. The match group needs a checkout
+with ``ops.zstd_match``.
 
 Inputs, made from seeds with numpy:
 - w2 (E, D): the bench tiers and realistic at [4, 4M] int16 (zz16), four
@@ -28,7 +29,15 @@ Inputs, made from seeds with numpy:
 - probe: ``prefix_sum`` on [256, 128] (the capability probe's input) and
   [32768, 128] int32 beside ``torch.cumsum``, ``fetch_i32`` on 128 x 32768
   int32 beside ``copy_``, in turns (kernel, library, library, kernel, six
-  times), each turn one call with the L2 flushed and ten back to back.
+  times), each turn one call with the L2 flushed and ten back to back;
+- match (M): the StreamVByte payload of the clean tier's first 8 MiB chunk
+  (5,243,482 bytes, the own-tpu stage's input), all-zero bytes and uniform
+  bytes of the same length (every position stops at the first offset, and
+  almost none stops before the last), each against the plain scan, one
+  call with the L2 flushed and ten back to back beside the bound (N bytes
+  read, 4N written); the plain scan on the payload; the payload's copy to
+  the card and the int32 map's copy back through pageable memory, on the
+  host clock.
 For the codec inputs and each direction: one call with the L2 flushed and
 ten back to back, each the best of three (``profiling``'s ``cold_ms`` and
 ``warm_ms``), and the bound (the bytes the call must move at the data
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
@@ -200,16 +210,59 @@ def probe_turns(flush) -> dict:
     return times
 
 
+def match_times(flush, payload: bytes | None = None) -> dict:
+    """M on the payload (``signals.clean_payload()`` unless given), zeros
+    and uniform bytes (see the module docstring); the plain scan and the
+    copies on the payload."""
+    from vbz_compression_tpu_torch.ops import zstd_match
+
+    payload = np.frombuffer(payload or signals.clean_payload(), np.uint8)
+    n = payload.size
+    rng = np.random.default_rng(0)
+    out = {}
+    for label, buf in (("payload", payload), ("zeros", np.zeros(n, np.uint8)),
+                       ("uniform", rng.integers(0, 256, n).astype(np.uint8))):
+        x = torch.from_numpy(buf.copy()).cuda()
+        want = zstd_match.match_candidates_plain(x)
+        if not torch.equal(zstd_match.match_candidates(x), want):
+            raise SystemExit(f"match {label} differs from plain")
+        out[f"match {label}"] = t = {
+            "n": n, "candidates": int((want > 0).sum()),
+            "ms": profiling.cold_ms(lambda: zstd_match.match_candidates(x),
+                                    flush),
+            "warm_ms": profiling.warm_ms(
+                lambda: zstd_match.match_candidates(x)),
+            "bound_ms": roofline.bound_ms(5 * n)}
+        if label == "payload":
+            t["plain_ms"] = profiling.warm_ms(
+                lambda: zstd_match.match_candidates_plain(x), 3)
+            h2d, d2h = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dev = torch.from_numpy(buf.copy()).cuda()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                off = zstd_match.match_candidates(dev)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                off.cpu()
+                h2d.append((t1 - t0) * 1e3)
+                d2h.append((time.perf_counter() - t2) * 1e3)
+            t["copy_in_host_ms"], t["map_back_host_ms"] = h2d, d2h
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON result here")
     ap.add_argument("--only", action="append",
-                    choices=("w2", "w4", "v1", "probe"),
+                    choices=("w2", "w4", "v1", "probe", "match"),
                     help="time only these groups (repeatable; default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is visible")
-    groups = args.only or ["w2", "w4", "v1", "probe"]
+    groups = args.only or ["w2", "w4", "v1", "probe", "match"]
     smi = profiling.card()
     print(smi)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -253,6 +306,19 @@ def main() -> int:
                   f"cold, {min(t['library_warm_ms']):.4f}-"
                   f"{max(t['library_warm_ms']):.4f} warm; bound "
                   f"{t['bound_ms']:.5f}")
+    if "match" in groups:
+        for label, t in match_times(flush).items():
+            times[label] = t
+            extra = ""
+            if "plain_ms" in t:
+                extra = (f"; plain {t['plain_ms']:.3f}; copy in "
+                         f"{min(t['copy_in_host_ms']):.3f}-"
+                         f"{max(t['copy_in_host_ms']):.3f} ms, map back "
+                         f"{min(t['map_back_host_ms']):.3f}-"
+                         f"{max(t['map_back_host_ms']):.3f} ms host to host")
+            print(f"  {label:14s} [{t['n']}] M {t['ms']:.4f} ms cold, "
+                  f"{t['warm_ms']:.4f} warm, bound {t['bound_ms']:.5f}, "
+                  f"{t['candidates']} candidates{extra}")
     text = json.dumps({"card": smi, "times": times})
     print(text)
     if args.out:
