@@ -45,7 +45,8 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      batch, and E4 none32 / D on codec2's [1, 4096] input (the W4 and
      codec2 inputs come from tools.kernel_times);
   6. copy and probe kernels against their plain versions on the card, bit
-     for bit: CP at 256 MiB and on row counts that are not powers of two,
+     for bit, each call one launch (the butterfly too, all its stages):
+     CP at 256 MiB and on row counts that are not powers of two,
      every case of the capability probe; each kernel timed on its first
      case, and the prefix sum also on 4M values (prefix_sum_4m), with the
      L2 flushed and back to back, beside its plain version, its one-call
@@ -54,7 +55,9 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      pass), the copy bandwidth and the pipeline line; E, D and CP must have
      launched (counts set to 0 just before and read just after);
   8. the probe path: vbz_compression_tpu_torch.tools.capability_probe, every
-     case OK; every probe kernel and CP must have launched;
+     case OK; every probe kernel, CP and kernel M at both widths (the int32
+     offsets and the uint8 index, on signals.match_cases) must have
+     launched;
   9. the corpus paths, on the 256 pseudo-reads (signals.pseudo_reads) at zstd
      level 0 (level 1 needs the zstandard package; the driver's default is
      level 1): (a) parallel.multihost.compress_signals at cd_values
@@ -69,19 +72,22 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      no h5py; fast5 files and fast5vbz are checked by the CPU tests):
      identical global stats, and each .vbz file byte for byte the oracle's
      frames of that file's reads;
- 10. the own-tpu zstd stage: kernel M (the match scan) against its plain
-     version bit for bit on signals.match_cases, on the StreamVByte payload
-     of the clean tier's first 8 MiB chunk (5,243,482 bytes), on views of it
-     at storage offsets 1-3 and over 20 repeated calls; M timed there (L2
-     flushed and back to back) beside its plain version and its bound, and
-     the scan's copies timed apart; then two paths at cd_values (0,2,1,1)
+ 10. the own-tpu zstd stage: kernel M (the match scan) at both widths, the
+     int32 offsets (match_scan) and the uint8 index (match_index), against
+     its plain versions bit for bit on signals.match_cases, on the
+     StreamVByte payload of the clean tier's first 8 MiB chunk (5,243,482
+     bytes), on views of it at storage offsets 1-3 and over 20 repeated
+     calls; both timed there (L2 flushed and back to back) beside their
+     plain versions and bounds (5N and 2N bytes), and the scan's copies
+     timed apart (the payload in, the int32 map and the index back); then
+     two paths at cd_values (0,2,1,1)
      with VBZ_ZSTD_ENCODER=own-tpu, each frame byte for byte the same call's
      on the CPU with the plain scan: (a) the clean tier as 4 x 8 MiB chunks
      through vbz_compress_sized_batch, timed host to host and split into
-     the scan (copy in, M, copy back) and the host's encoder, its frames'
-     size beside the own host matcher's; (b) compress_signals on the 256
-     pseudo-reads. E and M must launch on both (counts set to 0 just before
-     each path and read just after).
+     the scan (copy in, M's index, copy back) and the host's encoder, its
+     frames' size beside the own host matcher's; (b) compress_signals on the
+     256 pseudo-reads. E and M's index must launch on both (counts set to 0
+     just before each path and read just after).
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -201,7 +207,8 @@ class Port:
             m.ENCODE_LAUNCHES = 0
             m.DECODE_LAUNCHES = 0
         self.roofline.COPY_LAUNCHES = 0
-        self.match.LAUNCHES = 0
+        for key in self.match.LAUNCHES:
+            self.match.LAUNCHES[key] = 0
         for key in self.probes.LAUNCHES:
             self.probes.LAUNCHES[key] = 0
 
@@ -212,7 +219,7 @@ class Port:
             e_name, d_name = PAIRS[pair][0]
             out[e_name], out[d_name] = m.ENCODE_LAUNCHES, m.DECODE_LAUNCHES
         out["copy"] = self.roofline.COPY_LAUNCHES
-        out["match_scan"] = self.match.LAUNCHES
+        out.update(self.match.LAUNCHES)
         out.update(self.probes.LAUNCHES)
         return out
 
@@ -686,11 +693,18 @@ def check_aux(port: Port) -> dict:
     cases += probe.cases(DEVICE)
     out = {}
     for case in cases:
-        err = probe.max_abs_err(case.kernel(), case.plain())
+        before = port.counts()[case.key]
+        got = case.kernel()
+        launches = port.counts()[case.key] - before
+        err = probe.max_abs_err(got, case.plain())
         torch.cuda.synchronize()
-        print(f"  {case.key:16s} {case.name:28s} max abs err {err}")
+        print(f"  {case.key:16s} {case.name:28s} max abs err {err}, "
+              f"{launches} launch")
         if err != 0:
             raise SystemExit(f"kernel mismatch in {case.key} {case.name!r}")
+        if launches != 1:
+            raise SystemExit(f"{case.key} {case.name!r} took {launches} "
+                             "launches, not one")
         name = case.timed_as or case.key
         if name in out:
             continue
@@ -743,7 +757,8 @@ def probe_path(port: Port) -> tuple[dict, dict]:
     result = port.probe.run()
     launches = port.counts()
     port.require_launched("the probe path", launches,
-                          ("copy", *port.probes.LAUNCHES))
+                          ("copy", *port.probes.LAUNCHES,
+                           *port.match.LAUNCHES))
     for r in result["probes"]:
         print(f"  {r['case']:28s} {'OK' if r['ok'] else 'WRONG'} "
               f"{r['ms']:.4f} ms")
@@ -946,61 +961,82 @@ OWN_OPTIONS = (0, 2, 1, 1)  # the fast5 default, at zstd level 1
 MATCH = "vbz_compression_tpu/ops/zstd_match_tpu.py:37"
 
 
-def check_match(port: Port, clean: bytes) -> dict:
-    """M against its plain version on the same CUDA tensors: every case of
-    signals.match_cases, the clean payload, views of it 1-3 bytes into
-    their buffer, 20 repeated calls; then M's times (tools.kernel_times
-    match_times) on the clean payload, zeros and uniform bytes beside its
-    bound (N bytes read, 4N written), the plain version's time and the
-    scan's copies (payload in, int32 map back) on the host clock. Returns
-    M's numbers on the payload, and the others under "inputs"."""
+def check_match(port: Port, clean: bytes) -> tuple[dict, dict]:
+    """M at both widths (int32 offsets, uint8 index) against its plain
+    versions on the same CUDA tensors: every case of signals.match_cases,
+    the clean payload, views of it 1-3 bytes into their buffer, 20 repeated
+    calls; then M's times (tools.kernel_times match_times) on the clean
+    payload, zeros and uniform bytes beside its bounds (N bytes read, 4N or
+    N written), the plain versions' times and the scan's copies (payload in,
+    int32 map and index back) on the host clock. Returns the int32 and the
+    index instance's numbers on the payload, the others under "inputs"."""
     torch, zm = port.torch, port.match
     lib = port.build.lib("match")
     cases = port.signals.match_cases(lib.vbz_match_tile(),
                                      lib.vbz_match_halo())
     cases.append(("clean payload", np.frombuffer(clean, np.uint8), None))
-    err = 0
+    widths = (("int32", zm.match_candidates, zm.match_candidates_plain,
+               torch.int32),
+              ("index", zm.match_index, zm.match_index_plain, torch.uint8))
+    err = dict.fromkeys(("int32", "index"), 0)
     for name, buf, offsets in cases:
         offsets = zm.DEFAULT_OFFSETS if offsets is None else offsets
         x = torch.from_numpy(buf.copy()).to(DEVICE)
-        got = zm.match_candidates(x, offsets)
-        want = zm.match_candidates_plain(x, offsets)
-        e = int((got.long() - want.long()).abs().max()) if buf.size else 0
-        torch.cuda.synchronize()
-        print(f"  match {name:24s} [{buf.size}]: max abs err {e}, "
-              f"{int((want > 0).sum())} candidates")
-        if e or got.dtype != torch.int32 or got.shape != want.shape:
-            raise SystemExit(f"kernel M differs from plain on {name!r}")
-        err = max(err, e)
+        line = f"  match {name:24s} [{buf.size}]:"
+        for width, fn, plain, dtype in widths:
+            got = fn(x, offsets)
+            want = plain(x, offsets)
+            e = int((got.long() - want.long()).abs().max()) if buf.size else 0
+            torch.cuda.synchronize()
+            line += f" {width} max abs err {e},"
+            if e or got.dtype != dtype or got.shape != want.shape:
+                raise SystemExit(f"kernel M ({width}) differs from plain on "
+                                 f"{name!r}")
+            err[width] = max(err[width], e)
+        print(f"{line} {int((want > 0).sum())} candidates")
     x = torch.from_numpy(np.frombuffer(clean, np.uint8).copy()).to(DEVICE)
-    want = zm.match_candidates_plain(x)
-    for shift in (1, 2, 3):
-        if not torch.equal(zm.match_candidates(_shifted(x, shift)), want):
-            raise SystemExit(f"kernel M on a view {shift} bytes off its "
-                             "buffer's start differs from plain")
-    for _ in range(20):
-        if not torch.equal(zm.match_candidates(x), want):
-            raise SystemExit("kernel M: a repeated call gave other values")
+    for width, fn, plain, _ in widths:
+        want = plain(x)
+        for shift in (1, 2, 3):
+            if not torch.equal(fn(_shifted(x, shift)), want):
+                raise SystemExit(f"kernel M ({width}) on a view {shift} "
+                                 "bytes off its buffer's start differs from "
+                                 "plain")
+        for _ in range(20):
+            if not torch.equal(fn(x), want):
+                raise SystemExit(f"kernel M ({width}): a repeated call gave "
+                                 "other values")
     print("  match clean payload at storage offsets 1-3 and 20 repeated "
-          "calls: equal to plain")
+          "calls, both widths: equal to plain")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     inputs = port.times.match_times(flush, clean)
     del flush
-    t = dict(inputs.pop("match payload"), max_abs_err=err, bound_by="bytes",
-             inputs=inputs)
-    print(f"  M on the clean payload [{t['n']}]: {t['ms']:.4f} ms cold, "
+    p = inputs.pop("match payload")
+    t = dict(p, max_abs_err=err["int32"], bound_by="bytes", inputs=inputs)
+    t_index = {"n": p["n"], "ms": p["index_ms"],
+               "warm_ms": p["index_warm_ms"],
+               "plain_ms": p["index_plain_ms"],
+               "bound_ms": p["index_bound_ms"], "bound_by": "bytes",
+               "max_abs_err": err["index"]}
+    print(f"  M on the clean payload [{t['n']}]: int32 {t['ms']:.4f} ms cold, "
           f"{t['warm_ms']:.4f} warm, plain {t['plain_ms']:.3f}, bound "
-          f"{t['bound_ms']:.5f}; copy in {min(t['copy_in_host_ms']):.3f} ms, "
-          f"map back {min(t['map_back_host_ms']):.3f} ms host to host "
-          "(pageable, best of 5); on zeros "
-          f"{inputs['match zeros']['ms']:.4f} ms cold, on uniform bytes "
-          f"{inputs['match uniform']['ms']:.4f}")
-    return t
+          f"{t['bound_ms']:.5f}; index {t_index['ms']:.4f} ms cold, "
+          f"{t_index['warm_ms']:.4f} warm, plain {t_index['plain_ms']:.3f}, "
+          f"bound {t_index['bound_ms']:.5f}; copy in "
+          f"{min(t['copy_in_host_ms']):.3f} ms, int32 map back "
+          f"{min(t['map_back_host_ms']):.3f} ms, index back "
+          f"{min(t['index_back_host_ms']):.3f} ms host to host (pageable, "
+          "best of 5); on zeros int32 "
+          f"{inputs['match zeros']['ms']:.4f} / index "
+          f"{inputs['match zeros']['index_ms']:.4f} ms cold, on uniform "
+          f"bytes {inputs['match uniform']['ms']:.4f} / "
+          f"{inputs['match uniform']['index_ms']:.4f}")
+    return t, t_index
 
 
 def scan_split(port: Port, payloads: list) -> dict:
     """The own-tpu encoder per chunk payload, one after another: the scan
-    (the payload's copy to the card, M, the map's copy back) and the whole
+    (the payload's copy to the card, M, the index's copy back) and the whole
     frame, on the host clock; the host's part is their difference."""
     torch, zm = port.torch, port.match
     scan_s = frame_s = 0.0
@@ -1008,7 +1044,7 @@ def scan_split(port: Port, payloads: list) -> dict:
         buf = np.frombuffer(p, np.uint8)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        zm.match_candidates(torch.from_numpy(buf.copy()).to(DEVICE)).cpu()
+        zm.match_index(torch.from_numpy(buf.copy()).to(DEVICE)).cpu()
         t1 = time.perf_counter()
         port.zstd_seq.compress_frame(p, matcher="device", device=DEVICE)
         t2 = time.perf_counter()
@@ -1033,7 +1069,7 @@ def own_tpu_paths(port: Port, chunks: list, reads: list) -> list:
         first_s = time.perf_counter() - t0
         launches_a = port.counts()
         port.require_launched("own-tpu batch API", launches_a,
-                              ("w2_encode", "match_scan"))
+                              ("w2_encode", "match_index"))
         enc_s = first_s
         for _ in range(REPEATS - 1):
             t0 = time.perf_counter()
@@ -1055,7 +1091,7 @@ def own_tpu_paths(port: Port, chunks: list, reads: list) -> list:
         corpus_s = time.perf_counter() - t0
         launches_b = port.counts()
         port.require_launched("own-tpu corpus driver", launches_b,
-                              ("w2_encode", "match_scan"))
+                              ("w2_encode", "match_index"))
         if corpus != port.multihost.compress_signals(reads, opts,
                                                      device="cpu"):
             raise SystemExit("own-tpu corpus driver: frames differ from the "
@@ -1209,7 +1245,7 @@ def main() -> int:
     # Phase 10: the own-tpu zstd stage.
     print("own-tpu zstd stage:")
     clean_chunks = list(tier_rows["clean"])
-    match = check_match(port, port.pkg.oracle.svb_compress(
+    match, match_index = check_match(port, port.pkg.oracle.svb_compress(
         clean_chunks[0], 2, True, 0))
     runs += own_tpu_paths(port, clean_chunks, pseudo)
     lap("10 own-tpu zstd stage")
@@ -1249,18 +1285,19 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "warm_ms": t["warm_ms"],
             "timed_on": f"{t['timed_on']}, L2 flushed before the call"})
-    kernels.append({
-        "name": "match_scan", "route": "cuda",
-        "source": "vbz_compression_tpu_torch/csrc/match_scan.cu",
-        "replaces": MATCH, "launches": launched("match_scan"),
-        "max_abs_err": match["max_abs_err"], "ms": match["ms"],
-        "plain_ms": match["plain_ms"], "bound_ms": match["bound_ms"],
-        "bound_by": match["bound_by"], "library_ms": None,
-        "warm_ms": match["warm_ms"],
-        "timed_on": f"the clean tier's first chunk's payload [{match['n']}] "
-                    "uint8, L2 flushed before the call"})
+    for name, t in (("match_scan", match), ("match_index", match_index)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "vbz_compression_tpu_torch/csrc/match_scan.cu",
+            "replaces": MATCH, "launches": launched(name),
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "warm_ms": t["warm_ms"],
+            "timed_on": f"the clean tier's first chunk's payload [{t['n']}] "
+                        "uint8, L2 flushed before the call"})
     print(json.dumps({"times": times, "main_paths": runs, "aux": aux,
-                      "match": match,
+                      "match": match, "match_index": match_index,
                       "bench": bench_lines,
                       "probe_device_ops": probe_result["device_ops"],
                       "card": smi, "seconds": seconds}))

@@ -4,11 +4,12 @@ the port's NumPy oracle; the look-back across tiles of E/D, E4/D4 and
 V1E/V1D (tile edges, uniform codes, V1E's half-byte carried across empty
 tiles, short data rows, views off alignment, repeated calls);
 the copy kernel CP and the capability probe's kernels against their plain
-versions, the prefix sum also on tile edges and in repeated calls; the
+versions, the prefix sum also on tile edges and in repeated calls, the
+butterfly at every stage count around its tile edges in one launch; the
 data-parallel plane and the corpus driver against the oracle; the match
-scan M against its plain version (``signals.match_cases``, the clean
-payload, views off alignment, repeated calls) and the own-tpu zstd stage's
-frames against the CPU path's. Exact.
+scan M at both widths against its plain versions (``signals.match_cases``,
+the clean payload, views off alignment, repeated calls, threads) and the
+own-tpu zstd stage's frames against the CPU path's. Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -600,38 +601,50 @@ def _match_cases():
                                                     lib.vbz_match_halo())]
 
 
+# M's two widths: (LAUNCHES key, wrapper, plain version, result dtype).
+_WIDTHS = [("match_scan", zstd_match.match_candidates,
+            zstd_match.match_candidates_plain, torch.int32),
+           ("match_index", zstd_match.match_index,
+            zstd_match.match_index_plain, torch.uint8)]
+
+
 @pytest.mark.cuda
-def test_match_scan_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("key,fn,plain,dtype", _WIDTHS,
+                         ids=[w[0] for w in _WIDTHS])
+def test_match_scan_matches_plain_on_card(cuda_device, key, fn, plain, dtype):
     """M on every case of signals.match_cases (tile and halo edges, n around
-    o + 4, unsorted offsets, offsets past the halo) equals the plain scan,
-    one launch per non-empty buffer."""
+    o + 4, unsorted and repeated offsets, offsets past the halo) equals the
+    plain scan at both widths, one launch per non-empty buffer."""
     cases = _match_cases()
-    before = zstd_match.LAUNCHES
+    before = zstd_match.LAUNCHES[key]
     for name, buf, offsets in cases:
         x = torch.from_numpy(buf.copy()).to(cuda_device)
-        got = zstd_match.match_candidates(x, offsets)
-        assert got.dtype == torch.int32 and got.shape == (buf.size,), name
-        assert torch.equal(got, zstd_match.match_candidates_plain(
-            x, offsets)), name
+        got = fn(x, offsets)
+        assert got.dtype == dtype and got.shape == (buf.size,), name
+        assert torch.equal(got, plain(x, offsets)), name
     torch.cuda.synchronize()
-    assert zstd_match.LAUNCHES - before == sum(b.size > 0 for _, b, _ in cases)
+    assert zstd_match.LAUNCHES[key] - before == sum(
+        b.size > 0 for _, b, _ in cases)
 
 
 @pytest.mark.cuda
-def test_match_scan_clean_payload_on_card(cuda_device):
-    """M on the clean chunk's 5,243,482-byte payload, on views of it 1-3
+@pytest.mark.parametrize("key,fn,plain,dtype", _WIDTHS,
+                         ids=[w[0] for w in _WIDTHS])
+def test_match_scan_clean_payload_on_card(cuda_device, key, fn, plain, dtype):
+    """M on the clean chunk's 5,243,482-byte payload, on views of it 0-3
     bytes into their buffer and over 20 repeated calls equals the plain
-    scan; build_match_index_device on the card equals it on the CPU."""
+    scan at both widths; build_match_index_device on the card equals it on
+    the CPU."""
     payload = np.frombuffer(signals.clean_payload(), np.uint8)
     x = torch.from_numpy(payload.copy()).to(cuda_device)
-    want = zstd_match.match_candidates_plain(x)
+    want = plain(x)
     for shift in (0, 1, 2, 3):
         view = torch.empty(x.numel() + shift, dtype=torch.uint8,
                            device=cuda_device)[shift:]
         view.copy_(x)
-        assert torch.equal(zstd_match.match_candidates(view), want), shift
+        assert torch.equal(fn(view), want), shift
     for _ in range(20):
-        assert torch.equal(zstd_match.match_candidates(x), want)
+        assert torch.equal(fn(x), want)
     small = payload[:200_003]
     on_card = zstd_match.build_match_index_device(small, device=cuda_device)
     on_cpu = zstd_match.build_match_index_device(small, device="cpu")
@@ -642,16 +655,17 @@ def test_match_scan_clean_payload_on_card(cuda_device):
 @pytest.mark.cuda
 def test_own_tpu_frames_match_cpu_on_card(cuda_device, monkeypatch):
     """VBZ_ZSTD_ENCODER=own-tpu through the batch API and the corpus driver
-    on the card at (0,2,1,1): the frames of the same calls on the CPU, M
-    launched once per chunk payload of 4 bytes or more."""
+    on the card at (0,2,1,1): the frames of the same calls on the CPU, M's
+    index launched once per chunk payload of 4 bytes or more."""
     monkeypatch.setenv("VBZ_ZSTD_ENCODER", "own-tpu")
     opts = CompressionOptions.from_cd_values((0, 2, 1, 1))
     reads = signals.pseudo_reads(6) + [np.zeros(0, np.int16),
                                        np.arange(3, dtype=np.int16)]
-    before = zstd_match.LAUNCHES
+    before = dict(zstd_match.LAUNCHES)
     frames = api.vbz_compress_sized_batch(
         reads, opts, backend=TorchSvbBackend(cuda_device))
-    assert zstd_match.LAUNCHES - before == 7
+    assert zstd_match.LAUNCHES["match_index"] - before["match_index"] == 7
+    assert zstd_match.LAUNCHES["match_scan"] == before["match_scan"]
     assert frames == api.vbz_compress_sized_batch(
         reads, opts, backend=TorchSvbBackend("cpu"))
     assert multihost.compress_signals(reads, opts, device=cuda_device) == \
@@ -662,29 +676,65 @@ def test_own_tpu_frames_match_cpu_on_card(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_match_scan_from_threads_on_card(cuda_device):
+@pytest.mark.parametrize("key,fn,plain,dtype", _WIDTHS,
+                         ids=[w[0] for w in _WIDTHS])
+def test_match_scan_from_threads_on_card(cuda_device, key, fn, plain, dtype):
     """M launched from more threads than cores at once, with a short switch
-    interval: every result equals the plain scan's and no launch is lost
-    from the count (the batch API's zstd stage launches from a pool)."""
+    interval, at both widths: every result equals the plain scan's and no
+    launch is lost from the count (the batch API's zstd stage launches from
+    a pool)."""
     import os
     import sys
     from concurrent.futures import ThreadPoolExecutor
 
     bufs = [torch.from_numpy(np.resize(b, 200_000 + 7 * i)).to(cuda_device)
             for i, (_, b, _) in enumerate(_match_cases()[:6]) if b.size]
-    want = [zstd_match.match_candidates_plain(x) for x in bufs]
+    want = [plain(x) for x in bufs]
     calls = 8 * len(bufs)
-    before = zstd_match.LAUNCHES
+    before = zstd_match.LAUNCHES[key]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
         with ThreadPoolExecutor(2 * (os.cpu_count() or 1)) as pool:
-            futures = [pool.submit(zstd_match.match_candidates,
-                                   bufs[k % len(bufs)])
+            futures = [pool.submit(fn, bufs[k % len(bufs)])
                        for k in range(calls)]
             got = [f.result(timeout=120) for f in futures]
     finally:
         sys.setswitchinterval(interval)
     for k, g in enumerate(got):
         assert torch.equal(g, want[k % len(bufs)]), k
-    assert zstd_match.LAUNCHES - before == calls
+    assert zstd_match.LAUNCHES[key] - before == calls
+
+
+def _butterfly_lengths(stages: int) -> list:
+    """Flat lengths around the butterfly kernel's tile edges (the tile
+    depends on the stages) and below its halo of 2^stages - 1 values."""
+    tile = _build.lib("probe").vbz_probe_butterfly_tile(stages, 1 << 40)
+    halo = (1 << stages) - 1
+    return sorted({1, 127, max(1, halo - 1), halo, halo + 1, tile - 1, tile,
+                   tile + 1, 2 * tile + 3, 3 * tile + halo})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32],
+                         ids=["int16", "int32"])
+@pytest.mark.parametrize("stages", range(1, 16))
+def test_butterfly_matches_plain_on_card(cuda_device, stages, dtype):
+    """The butterfly kernel at every stage count and both widths equals its
+    plain version on lengths around its tile edges and below its halo, on
+    tokens and on values of the whole range (signs included); one launch a
+    call."""
+    key = f"butterfly_i{8 * np.dtype(dtype).itemsize}"
+    rng = np.random.default_rng(stages)
+    info = np.iinfo(dtype)
+    for n in _butterfly_lengths(stages):
+        tokens = (np.sort(rng.integers(0, min(1 << stages, 1 << 14), n))
+                  << 1) | 1
+        for a in (tokens.astype(dtype),
+                  rng.integers(info.min, info.max, n, dtype=dtype,
+                               endpoint=True)):
+            x = torch.from_numpy(a.reshape(1, n)).to(cuda_device)
+            before = probes.LAUNCHES[key]
+            got = probes.butterfly(x, stages)
+            assert probes.LAUNCHES[key] == before + 1
+            assert torch.equal(got, probes.butterfly_plain(x, stages)), n

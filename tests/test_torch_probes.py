@@ -245,24 +245,36 @@ def test_widening_fetches_match_pallas(widen, kind):
 # ---------------------------------------------------------------------------
 
 
-def test_butterfly_matches_pallas_at_both_widths():
+# (stages, rows of 128): the probe's ten stages on its [528, 128], the
+# range's ends and a middle, and flat lengths below 2^stages (the Pallas
+# kernel's row shift needs at least 2^(stages-1) / 128 rows).
+BUTTERFLY_CASES = [(10, None), (1, None), (4, None), (15, None), (10, 5),
+                   (15, 200)]
+
+
+@pytest.mark.parametrize("stages,rows", BUTTERFLY_CASES)
+def test_butterfly_matches_pallas_at_both_widths(stages, rows):
     mod = _load("i16roll")
-    R = mod.R
-    E = np.sort(np.random.default_rng(0).integers(0, 600, R * LANES)).reshape(
-        R, LANES)
+    R = rows or mod.R
+    # Tokens: occupancy bit 0, displacement bits 1..; the probe's draw at
+    # ten stages, displacements reaching bit `stages` (within int16) else.
+    top = 600 if stages == 10 and rows is None else min(1 << stages,
+                                                        1 << 14)
+    E = np.sort(np.random.default_rng(stages).integers(
+        0, top, R * LANES)).reshape(R, LANES)
     got = {}
     for name, dt, jdt in (("int32", np.int32, jnp.int32),
                           ("int16", np.int16, jnp.int16)):
         x = ((E << 1) | 1).astype(name)
         want = _pallas(
-            mod.kernel_factory(jdt, probes.BUTTERFLY_STAGES),
+            mod.kernel_factory(jdt, stages),
             (jnp.asarray(x),), jax.ShapeDtypeStruct((R, LANES), jdt),
             grid=(2,),
             in_specs=[pl.BlockSpec((R, LANES), lambda i: (0, 0),
                                    memory_space=pltpu.VMEM)],
             out_specs=pl.BlockSpec((R, LANES), lambda i: (0, 0),
                                    memory_space=pltpu.VMEM))
-        got[name] = probes.butterfly(_t(x)).numpy()
+        got[name] = probes.butterfly(_t(x), stages).numpy()
         np.testing.assert_array_equal(got[name], want)
         assert got[name].dtype == dt
     np.testing.assert_array_equal(got["int16"].astype(np.int32),

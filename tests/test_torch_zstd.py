@@ -4,8 +4,10 @@
 - ``match_candidates_plain`` equals JAX's ``zstd_match_tpu.match_candidates``
   (int32 ``off``) on ``signals.match_cases``: the JAX match tests' inputs,
   random bytes, an all-zero buffer, lengths around o + 4 for o = 1 and 1024,
-  an unsorted offset list; ``build_match_index_device(..., "cpu")`` equals
-  ``build_match_index_tpu``.
+  an unsorted offset list, a list that repeats offsets;
+  ``match_index_plain`` (uint8 places in the list), mapped back through the
+  list, equals it too, 0 exactly where it is 0;
+  ``build_match_index_device(..., "cpu")`` equals ``build_match_index_tpu``.
 - Frames byte for byte the JAX package's on every input of
   ``tests/test_zstd_seq.py`` and ``tests/test_zstd_huff.py``, with the host
   matcher and the device matcher (JAX's "tpu"), against both JAX paths: its
@@ -74,6 +76,29 @@ def test_plain_scan_matches_jax(name):
         torch.from_numpy(buf.copy()), offsets))
 
 
+@pytest.mark.parametrize("name", list(MATCH_CASES))
+def test_plain_index_matches_jax(name):
+    buf, offsets = MATCH_CASES[name]
+    offsets = _offsets(offsets)
+    want = np.asarray(zstd_match_tpu.match_candidates(buf, offsets=offsets))
+    got = zstd_match.match_index(torch.from_numpy(buf.copy()), offsets)
+    assert got.dtype == torch.uint8 and got.shape == (buf.size,)
+    index = got.numpy()
+    np.testing.assert_array_equal(index == 0, want == 0)
+    probed = zstd_match._probed(offsets, buf.size)
+    np.testing.assert_array_equal(np.array((0,) + probed)[index], want)
+    assert torch.equal(got, zstd_match.match_index_plain(
+        torch.from_numpy(buf.copy()), offsets))
+
+
+def test_index_names_a_repeated_offset_by_its_first_place():
+    buf, offsets = MATCH_CASES["repeated offsets"]
+    index = zstd_match.match_index(torch.from_numpy(buf.copy()), offsets)
+    places = set(np.unique(index.numpy()).tolist())
+    # (3, 1, 3, 2, 1, 8, 2): the second 3, 1 and 2 never win.
+    assert places <= {0, 1, 2, 4, 6} and {1, 2} <= places
+
+
 def test_scan_cases_reach_what_they_name():
     """The cases hold what they are there for: matches at every offset kind
     (first, far, past the halo), none on random bytes."""
@@ -122,6 +147,26 @@ def test_scan_takes_bytes_only():
     with pytest.raises(ValueError, match="meta"):
         zstd_match.match_candidates(torch.zeros(9, dtype=torch.uint8,
                                                 device="meta"))
+
+
+def test_index_takes_what_the_scan_takes():
+    """The index's wrapper and plain version refuse what the int32 scan
+    refuses; a uint8 place holds at most MAX_OFFSETS (255) offsets."""
+    assert zstd_match.MAX_OFFSETS == 255
+    many = tuple(range(1, zstd_match.MAX_OFFSETS + 2))
+    for fn in (zstd_match.match_index, zstd_match.match_index_plain):
+        with pytest.raises(ValueError, match="uint8"):
+            fn(torch.zeros(9, dtype=torch.int32))
+        with pytest.raises(ValueError, match=">= 1"):
+            fn(torch.zeros(9, dtype=torch.uint8), (1, 0))
+        with pytest.raises(ValueError, match="at most"):
+            fn(torch.zeros(999, dtype=torch.uint8), many)
+        index = fn(torch.zeros(999, dtype=torch.uint8), many[:-1])
+        assert index.dtype == torch.uint8 and int(index[1]) == 1
+        assert int(index[:1].sum()) == 0
+    with pytest.raises(ValueError, match="meta"):
+        zstd_match.match_index(torch.zeros(9, dtype=torch.uint8,
+                                           device="meta"))
 
 
 def test_scan_reads_views_at_any_offset():

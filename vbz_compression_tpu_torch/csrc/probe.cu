@@ -18,15 +18,13 @@
 //            where the TPU used a bf16 matmul
 //   widen    (tools/probe_widen.py :62): fetch_i32 (k_i32 :32), fetch_i8
 //            (int8 widened to int32 with & 0xFF; k_i8 :40, k_i8_2d :49)
-//   i16roll  (tools/probe_i16roll.py :76, kernel_factory :51): one stage of
-//            the flat shift-and-select butterfly, at int16 and int32
+//   i16roll  (tools/probe_i16roll.py :76, kernel_factory :51): the flat
+//            shift-and-select butterfly, every stage in one launch, at int16
+//            and int32 (its own note below)
 //
-// Bounds: every kernel but the butterfly moves each byte once and does next
-// to no arithmetic, so bytes bound it; the butterfly's ten stages each
-// reread the array, which stays in L2 at the probe's size (270 KB at
-// int32), so its bound is its bytes in and out; its integer operations are
-// not counted (the data sheet gives no int32 rate), and at the probe's size
-// each stage takes a launch's latency. Design: grid-stride loops,
+// Bounds: every kernel moves each byte once and does next to no
+// arithmetic, so bytes bound it; the butterfly's integer operations are not
+// counted (the data sheet gives no int32 rate). Design: grid-stride loops,
 // neighbouring threads on neighbouring elements, 16-byte vectors where the
 // layout allows; fetch_i32's grid covers its array, four int4s a thread.
 // The prefix sum is one launch over tiles of 256 threads x 16 values, one
@@ -260,36 +258,128 @@ __global__ void fetch_i8(const uint32_t* __restrict__ data,
   }
 }
 
-// One butterfly stage j: rolled = in shifted right by 2^j (flat, zero
-// fill); take rolled where its bit 1+j is set, else keep in where in's bit
-// 1+j is clear, else 0.
+// The butterfly of probe_i16roll.py, all stages in one launch. For j =
+// stages-1 .. 0: rolled = the flat array shifted right by 2^j (zero fill);
+// take rolled where its bit 1+j is set, else keep the value where its own
+// bit 1+j is clear, else 0.
+//
+// What bounds it: at the probe's size (67,584 values) the latency of one
+// launch; its bytes (each value read and written once) take 0.1-0.2 us.
+// Before, each stage was a launch of its own, ten a call.
+//
+// Design: output i depends only on inputs i - k for k in [0, 2^stages - 1],
+// and a zero stays zero through every stage, so zeros staged before index 0
+// are the zero fill. Each block of 1024 threads stages its tile (a multiple
+// of 1024 values, about the halo) and the halo of 2^stages - 1 values behind
+// it in shared memory as int32 at both widths (whole words: int16 stores of
+// half words were slower), sized per call up to the 227 KB a block may have;
+// it runs every stage there and writes its tile. Stage j only updates the
+// window's values from halo - (2^j - 1) on, the ones a later stage or the
+// tile still reads, so every read lands inside the window. A stage updates
+// in place, the highest chunk of kButterflyThreads x kButterflyPer values
+// first: each chunk reads into registers, syncs, writes, syncs, and a lower
+// chunk reads only values no higher chunk has written. At the probe's ten
+// stages a block's window is one chunk. Blocks share nothing. A thread
+// block cluster reading its neighbours' halos through distributed shared
+// memory was not taken: it holds at most 8 blocks (the portable size), so
+// the probe's array would run on 8 SMs instead of 66 and a longer one would
+// need a second path, while the halo costs a block at most one more tile of
+// loads and updates.
+constexpr int kButterflyThreads = 1024;
+constexpr int kButterflyPer = 4;  // values a thread holds in registers
+constexpr int kButterflyChunk = kButterflyThreads * kButterflyPer;
+constexpr int kButterflyStep = 1024;  // the tile is a multiple of it
+constexpr int kSharedOptIn = 227 * 1024;  // bytes a block may have
+
 template <typename T>
-__global__ void butterfly_stage(const T* __restrict__ in, T* __restrict__ out,
-                                long long n, int j) {
-  const long long s = 1LL << j;
-  for (long long i = first_index(); i < n; i += grid_stride()) {
-    const int c = in[i];
-    const int rolled = i >= s ? static_cast<int>(in[i - s]) : 0;
-    const int bit_rolled = (rolled >> (1 + j)) & 1;
-    const int bit_stay = (c >> (1 + j)) & 1;
-    out[i] = static_cast<T>(bit_rolled ? rolled : (bit_stay == 0 ? c : 0));
+__global__ void __launch_bounds__(kButterflyThreads)
+    butterfly_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
+                     int stages, int tile) {
+  extern __shared__ __align__(16) int butterfly_win[];
+  int* win = butterfly_win;  // int16 too: whole words, no sub-word stores
+  const int halo = (1 << stages) - 1;
+  const int size = tile + halo;
+  const long long t0 = static_cast<long long>(blockIdx.x) * tile;
+  const long long first = t0 - halo;  // the index win[0] holds
+  // A chunk's loads in flight before their stores.
+  for (int w0 = 0; w0 < size; w0 += kButterflyChunk) {
+    int v[kButterflyPer];
+#pragma unroll
+    for (int k = 0; k < kButterflyPer; ++k) {
+      const long long i = first + w0 + threadIdx.x + k * kButterflyThreads;
+      v[k] = i >= 0 && i < n ? static_cast<int>(x[i]) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kButterflyPer; ++k) {
+      const int w = w0 + threadIdx.x + k * kButterflyThreads;
+      if (w < size) win[w] = v[k];
+    }
+  }
+  __syncthreads();
+  for (int j = stages - 1; j >= 0; --j) {
+    const int s = 1 << j;
+    const int lo = halo - (s - 1);
+    for (int hi = size; hi > lo; hi -= kButterflyChunk) {
+      const int c0 = hi - kButterflyChunk > lo ? hi - kButterflyChunk : lo;
+      int v[kButterflyPer];
+#pragma unroll
+      for (int k = 0; k < kButterflyPer; ++k) {
+        const int w = c0 + threadIdx.x + k * kButterflyThreads;
+        if (w < hi) {
+          const int c = win[w];
+          const int rolled = win[w - s];
+          v[k] = ((rolled >> (1 + j)) & 1)
+                     ? rolled
+                     : (((c >> (1 + j)) & 1) == 0 ? c : 0);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kButterflyPer; ++k) {
+        const int w = c0 + threadIdx.x + k * kButterflyThreads;
+        if (w < hi) win[w] = v[k];
+      }
+      __syncthreads();
+    }
+  }
+  for (int w = threadIdx.x; w < tile; w += kButterflyThreads) {
+    const long long i = t0 + w;
+    if (i < n) out[i] = static_cast<T>(win[halo + w]);
   }
 }
 
+// The values one block writes, a multiple of kButterflyStep: about the
+// halo (so the halo costs a block at most as much again), within the
+// shared memory a block may have, no more than the array needs.
+int butterfly_tile(int stages, long long n) {
+  const int halo = (1 << stages) - 1;
+  const int fit =
+      (kSharedOptIn / static_cast<int>(sizeof(int)) - halo) / kButterflyStep;
+  int steps = (halo + kButterflyStep) / kButterflyStep;
+  if (steps > fit) steps = fit;
+  const long long need = (n + kButterflyStep - 1) / kButterflyStep;
+  if (steps > need) steps = static_cast<int>(need);
+  return (steps > 0 ? steps : 1) * kButterflyStep;
+}
+
 template <typename T>
-int butterfly(const void* x, void* out, void* scratch, long long n, int stages,
+int butterfly(const void* x, void* out, long long n, int stages,
               cudaStream_t s) {
-  const T* src = static_cast<const T*>(x);
-  for (int k = 0; k < stages; ++k) {
-    const int j = stages - 1 - k;
-    // Alternate so that the last stage (j == 0) writes out.
-    T* dst = static_cast<T*>(j % 2 == 0 ? out : scratch);
-    butterfly_stage<T><<<grid_for(n), kProbeThreads, 0, s>>>(src, dst, n, j);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    src = dst;
+  const int tile = butterfly_tile(stages, n);
+  const size_t smem =
+      (static_cast<size_t>(tile) + (1 << stages) - 1) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        butterfly_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return 0;
+  const long long blocks = (n + tile - 1) / tile;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  butterfly_kernel<T><<<static_cast<unsigned>(blocks), kButterflyThreads, smem,
+                        s>>>(static_cast<const T*>(x), static_cast<T*>(out), n,
+                             stages, tile);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -388,18 +478,24 @@ int vbz_probe_fetch_i8(const void* data, int* out, long long n,
              reinterpret_cast<int4*>(out), n / 4);
 }
 
-// x, out, scratch: n values of elem_bytes (2: int16, 4: int32); stages in
-// [1, 15]. scratch may be null when stages == 1.
-int vbz_probe_butterfly(const void* x, void* out, void* scratch, long long n,
-                        int stages, int elem_bytes, void* stream) {
-  if (stages < 1 || stages > 15) {
+// Values one block of the butterfly writes, for tests that place lengths on
+// its tile edges.
+int vbz_probe_butterfly_tile(int stages, long long n) {
+  return butterfly_tile(stages, n);
+}
+
+// x, out: n > 0 values of elem_bytes (2: int16, 4: int32); stages in
+// [1, 15]. One launch.
+int vbz_probe_butterfly(const void* x, void* out, long long n, int stages,
+                        int elem_bytes, void* stream) {
+  if (stages < 1 || stages > 15 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (elem_bytes == 2) {
-    return butterfly<int16_t>(x, out, scratch, n, stages, VBZ_STREAM);
+    return butterfly<int16_t>(x, out, n, stages, VBZ_STREAM);
   }
   if (elem_bytes == 4) {
-    return butterfly<int32_t>(x, out, scratch, n, stages, VBZ_STREAM);
+    return butterfly<int32_t>(x, out, n, stages, VBZ_STREAM);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

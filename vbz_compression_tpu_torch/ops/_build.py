@@ -89,14 +89,18 @@ _SIGNATURES = {
         # data, out, n, stream
         "vbz_probe_fetch_i32": [_P, _P, _L, _P],
         "vbz_probe_fetch_i8": [_P, _P, _L, _P],
-        # x, out, scratch, n, stages, elem_bytes, stream
-        "vbz_probe_butterfly": [_P, _P, _P, _L, _I, _I, _P],
+        # stages, n
+        "vbz_probe_butterfly_tile": [_I, _L],
+        # x, out, n, stages, elem_bytes, stream
+        "vbz_probe_butterfly": [_P, _P, _L, _I, _I, _P],
     },
     "match": {
         "vbz_match_tile": [],
         "vbz_match_halo": [],
         # buf, off, n, offsets (a host int32 array), n_offsets, stream
         "vbz_match_candidates": [_P, _P, _L, _P, _I, _P],
+        # buf, index, n, offsets (a host int32 array), n_offsets, stream
+        "vbz_match_index": [_P, _P, _L, _P, _I, _P],
     },
 }
 NAMES = tuple(_SIGNATURES)

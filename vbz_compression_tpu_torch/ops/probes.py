@@ -331,7 +331,7 @@ def butterfly_plain(x: torch.Tensor,
 
 def butterfly(x: torch.Tensor, stages: int = BUTTERFLY_STAGES) -> torch.Tensor:
     """The ``probe_i16roll.py`` butterfly on a 2-D int16 or int32 tensor,
-    ``stages`` in [1, 15]; one kernel launch per stage on the card."""
+    ``stages`` in [1, 15]; one kernel launch for every stage on the card."""
     if x.dtype not in (torch.int16, torch.int32) or x.dim() != 2:
         raise ValueError(f"butterfly: want 2-D int16 or int32, got "
                          f"{x.dim()}-D {x.dtype}")
@@ -342,7 +342,6 @@ def butterfly(x: torch.Tensor, stages: int = BUTTERFLY_STAGES) -> torch.Tensor:
         return butterfly_plain(x, stages)
     out = torch.empty_like(x)
     if x.numel():
-        scratch = torch.empty_like(x)
-        _launch("vbz_probe_butterfly", key, x, out, scratch, x.numel(),
-                stages, x.element_size())
+        _launch("vbz_probe_butterfly", key, x, out, x.numel(), stages,
+                x.element_size())
     return out

@@ -9,11 +9,17 @@ no hash tables. The host's greedy assembler
 true length from the buffer, so the scan only certifies that a 4-byte match
 exists at offset o.
 
-On a CUDA tensor :func:`match_candidates` launches kernel M
-(``csrc/match_scan.cu``) and adds one to ``LAUNCHES``; on a CPU tensor it
-runs :func:`match_candidates_plain`, which mirrors the JAX function op for
-op; any other device raises. What bounds M is bytes: N read and 4N written
-(the int32 map), which the host then copies back.
+Kernel M (``csrc/match_scan.cu``) computes the scan in two widths, one
+wrapper each, with a plain version beside each:
+
+- :func:`match_candidates`: int32, the offset (the JAX function's result);
+  N bytes read and 4N written;
+- :func:`match_index`: uint8, the offset's place in the list plus one (0
+  for none); N read and N written. :func:`build_match_index_device`, the
+  zstd stage's scan, takes this one and copies N bytes back, not 4N.
+
+On a CUDA tensor a wrapper launches M and adds one to its ``LAUNCHES``
+entry; on a CPU tensor it runs its plain version; any other device raises.
 
 The input is uint8 only, where the JAX function also takes int32 (whose
 values the TPU scan compares whole, not as bytes); every caller hands it
@@ -35,10 +41,10 @@ MIN_MATCH = 4
 # plus a geometric tail; svb payloads of periodic signal match mostly short.
 DEFAULT_OFFSETS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 20, 24, 32, 48, 64,
                    96, 128, 192, 256, 384, 512, 768, 1024)
-MAX_OFFSETS = 256  # offsets one launch of M takes (csrc/match_scan.cu)
+MAX_OFFSETS = 255  # offsets one launch of M takes (csrc/match_scan.cu)
 
-# Kernel launches, one per wrapper call that reached the card.
-LAUNCHES = 0
+# Kernel launches of each width, one per wrapper call that reached the card.
+LAUNCHES = {"match_scan": 0, "match_index": 0}
 _LOCK = threading.Lock()  # the pipeline launches from a thread pool
 
 
@@ -87,11 +93,27 @@ def match_candidates_plain(buf: torch.Tensor,
     return best
 
 
-def match_candidates(buf: torch.Tensor,
-                     offsets: tuple = DEFAULT_OFFSETS) -> torch.Tensor:
-    """The scan of :func:`match_candidates_plain`: kernel M on a CUDA
-    tensor (on the calling thread's current stream), the plain version on a
-    CPU tensor. At most ``MAX_OFFSETS`` offsets are probed, on either."""
+def match_index_plain(buf: torch.Tensor,
+                      offsets: tuple = DEFAULT_OFFSETS) -> torch.Tensor:
+    """Plain PyTorch index scan (any device): uint8 [N], the place in
+    ``offsets`` (plus one) of the offset :func:`match_candidates_plain`
+    gives, the first place where the list repeats it; 0 where that is 0."""
+    probed = _probed(_check(buf, offsets), buf.shape[0])
+    if len(probed) > MAX_OFFSETS:
+        raise ValueError(f"{len(probed)} offsets: a uint8 index holds at "
+                         f"most {MAX_OFFSETS}")
+    off = match_candidates_plain(buf, offsets)
+    place = torch.zeros(max(probed, default=0) + 1, dtype=torch.uint8,
+                        device=buf.device)
+    for k in range(len(probed) - 1, -1, -1):
+        place[probed[k]] = k + 1
+    return place[off.long()]
+
+
+def _scan(buf: torch.Tensor, offsets, dtype: torch.dtype, entry: str,
+          key: str, plain) -> torch.Tensor:
+    """Kernel M through ``entry`` on a CUDA tensor (on the calling thread's
+    current stream), ``plain`` on a CPU tensor."""
     offsets = _check(buf, offsets)
     n = buf.shape[0]
     probed = _probed(offsets, n)
@@ -99,39 +121,58 @@ def match_candidates(buf: torch.Tensor,
         raise ValueError(f"{len(probed)} offsets: kernel M takes at most "
                          f"{MAX_OFFSETS}")
     if _rows.on_cpu(buf, "match scan"):
-        return match_candidates_plain(buf, offsets)
-    off = torch.empty(n, dtype=torch.int32, device=buf.device)
+        return plain(buf, offsets)
+    out = torch.empty(n, dtype=dtype, device=buf.device)
     if n == 0:
-        return off
+        return out
     if not buf.is_contiguous():
         raise ValueError("kernel arguments must be contiguous")
     host = np.array(probed, dtype=np.int32)
     from . import _build
 
-    _rows.launch(_build.lib("match").vbz_match_candidates, "match scan",
-                 buf, off, n, host.ctypes.data, host.size)
-    global LAUNCHES
+    _rows.launch(getattr(_build.lib("match"), entry), "match scan", buf, out,
+                 n, host.ctypes.data, host.size)
     with _LOCK:
-        LAUNCHES += 1
-    return off
+        LAUNCHES[key] += 1
+    return out
+
+
+def match_candidates(buf: torch.Tensor,
+                     offsets: tuple = DEFAULT_OFFSETS) -> torch.Tensor:
+    """The scan of :func:`match_candidates_plain`, int32 offsets: kernel M
+    on a CUDA tensor, the plain version on a CPU tensor. At most
+    ``MAX_OFFSETS`` offsets are probed, on either."""
+    return _scan(buf, offsets, torch.int32, "vbz_match_candidates",
+                 "match_scan", match_candidates_plain)
+
+
+def match_index(buf: torch.Tensor,
+                offsets: tuple = DEFAULT_OFFSETS) -> torch.Tensor:
+    """The scan of :func:`match_index_plain`, uint8 places in the list:
+    kernel M on a CUDA tensor, the plain version on a CPU tensor. At most
+    ``MAX_OFFSETS`` offsets are probed, on either."""
+    return _scan(buf, offsets, torch.uint8, "vbz_match_index", "match_index",
+                 match_index_plain)
 
 
 def build_match_index_device(buf: np.ndarray,
                              offsets: tuple = DEFAULT_OFFSETS,
                              device="cuda"):
     """The counterpart of ``build_match_index_tpu``, a drop-in for
-    :func:`.zstd_seq.build_match_index`: the candidate scan on ``device``
-    (kernel M on a CUDA device, the plain version on the CPU). Returns
-    ``(prev, v4)``: ``prev[i]`` the nearest bounded-offset source (-1 when
-    none) and ``v4`` the 4-byte windows the host greedy verifies with."""
+    :func:`.zstd_seq.build_match_index`: the index scan on ``device``
+    (kernel M on a CUDA device, the plain version on the CPU), whose uint8
+    places map back to offsets on the host. Returns ``(prev, v4)``:
+    ``prev[i]`` the nearest bounded-offset source (-1 when none) and ``v4``
+    the 4-byte windows the host greedy verifies with."""
     n = buf.size
     if n < MIN_MATCH:
         return np.zeros(0, np.int64), np.zeros(0, np.uint32)
     # A copy: the payload comes from np.frombuffer(bytes), which is
     # read-only, at any offset.
     src = torch.from_numpy(np.array(buf, dtype=np.uint8))
-    off = match_candidates(src.to(device), offsets).cpu().numpy()
-    off = off[: n - 3].astype(np.int64)
+    probed = _probed(tuple(int(o) for o in offsets), n)
+    index = match_index(src.to(device), offsets).cpu().numpy()
+    off = np.array((0,) + probed, dtype=np.int64)[index[: n - 3]]
     pos = np.arange(n - 3, dtype=np.int64)
     prev = np.where(off > 0, pos - off, -1)
     b = buf.astype(np.uint32)

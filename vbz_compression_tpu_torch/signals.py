@@ -473,7 +473,8 @@ def match_cases(tile: int, halo: int) -> list:
     below and above o + 4 for o = 1 and 1024 (a 1024-byte random period, so
     only offset 1024 matches), on tile edges and below 4; an unsorted offset
     list whose first too-large offset stops the list before later small ones,
-    and offsets past the halo on a 5000-byte period."""
+    a list that repeats offsets, and offsets past the halo on a 5000-byte
+    period."""
     rng = np.random.default_rng(5)
     sig = np.clip(500 + np.cumsum(rng.normal(0, 12, 30000)), -2000,
                   2000).astype(np.int16)
@@ -501,6 +502,8 @@ def match_cases(tile: int, halo: int) -> list:
     too_far = 3 * tile + halo
     cases.append(("unsorted offsets", svb[:3 * tile].copy(),
                   (7, 3, halo + 904, 1, too_far, 2, 4)))
+    cases.append(("repeated offsets", svb[:2 * tile + 5].copy(),
+                  (3, 1, 3, 2, 1, 8, 2)))
     cases.append(("offsets past the halo",
                   np.resize(far, 3 * tile + halo).astype(np.uint8),
                   (2, 5000, 1, halo + 4, 3)))

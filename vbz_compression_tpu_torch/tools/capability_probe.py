@@ -19,7 +19,11 @@ One probe in place of the JAX package's seven TPU tools:
 3. kernel CP's copy bandwidth at 512-, 2048- and 8192-row tiles
    (``tools/probe_copybw.py``), beside ``dst.copy_(src)``'s on the same
    array;
-4. the versions (PyTorch, CUDA, nvcc, Triton) and the card's SM count and
+4. kernel M (``ops/zstd_match.py``) at both widths, the int32 offsets of
+   ``match_candidates`` and the uint8 index of ``match_index``, against
+   their plain versions on every case of ``signals.match_cases``, OK or
+   WRONG per case and width, timed on the JAX match tests' payload;
+5. the versions (PyTorch, CUDA, nvcc, Triton) and the card's SM count and
    shared memory per block.
 
 Prints the card's name and power limit first and one JSON object last;
@@ -40,7 +44,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops import probes
+from .. import signals
+from ..ops import probes, zstd_match
 from ..utils import profiling, roofline
 
 LANES = 128
@@ -166,6 +171,32 @@ def cases(device) -> list[Case]:
     return out
 
 
+def match_scan(device) -> list[dict]:
+    """Kernel M at both widths against its plain versions on every case of
+    ``signals.match_cases``: one record per case and width, timed on the
+    first case (the JAX match tests' payload)."""
+    from ..ops import _build
+
+    lib = _build.lib("match")
+    out = []
+    for k, (name, buf, offsets) in enumerate(signals.match_cases(
+            lib.vbz_match_tile(), lib.vbz_match_halo())):
+        offsets = zstd_match.DEFAULT_OFFSETS if offsets is None else offsets
+        x = torch.from_numpy(buf.copy()).to(device)
+        for kernel, fn, plain in (
+                ("match_scan", zstd_match.match_candidates,
+                 zstd_match.match_candidates_plain),
+                ("match_index", zstd_match.match_index,
+                 zstd_match.match_index_plain)):
+            err = max_abs_err(fn(x, offsets), plain(x, offsets))
+            rec = {"case": f"{kernel} {name} [{buf.size}]", "kernel": kernel,
+                   "ok": err == 0, "max_abs_err": err}
+            if k == 0:
+                rec["ms"] = profiling.warm_ms(lambda: fn(x, offsets))
+            out.append(rec)
+    return out
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape or a.dtype != b.dtype:
         return -1
@@ -275,6 +306,7 @@ def run(device="cuda") -> dict:
     # probe_i16roll.py's question: does int16 give int32's result?
     result["butterfly_widths_match"] = torch.equal(
         butterflies["butterfly_i16"], butterflies["butterfly_i32"])
+    result["match"] = match_scan(device)
     result["copy_gb_s"] = {rows: roofline.measure_copy_gbps(COPY_MIB, rows)
                            for rows in roofline.COPY_ROWS}
     result["copy_library_gb_s"] = library_copy_gbps()
@@ -303,6 +335,9 @@ def main(argv=None) -> int:
               f"({r['ms']:.4f} ms, {r['gb_s']:.1f} GB/s moved{extra})")
     print("butterfly int16 result equals int32's: "
           f"{'OK' if result['butterfly_widths_match'] else 'WRONG'}")
+    for r in result["match"]:
+        extra = f" ({r['ms']:.4f} ms)" if "ms" in r else ""
+        print(f"{r['case']}: {'OK' if r['ok'] else 'WRONG'}{extra}")
     for rows, gb_s in result["copy_gb_s"].items():
         print(f"copy {COPY_MIB} MiB, tiles of ({rows}, 128) int32: "
               f"{gb_s:.1f} GB/s read + write")
@@ -319,7 +354,7 @@ def main(argv=None) -> int:
 
 def ok(result: dict) -> bool:
     """Every case of a :func:`run` result OK."""
-    return (all(r["ok"] for r in result["probes"])
+    return (all(r["ok"] for r in result["probes"] + result["match"])
             and result["butterfly_widths_match"])
 
 

@@ -4,7 +4,7 @@ library call beside it, for comparing two trees.
 Run with one CUDA card visible, from the root of a checkout:
 
     python -m vbz_compression_tpu_torch.tools.kernel_times [--out FILE]
-        [--only w2|w4|v1|probe|match ...]
+        [--only w2|w4|v1|probe|match|own ...]
 
 The script calls only what every version of the port since the one-pass E
 and D has (the ``svb_w2``, ``svb_w4`` and ``svb_v1`` wrappers,
@@ -29,15 +29,21 @@ Inputs, made from seeds with numpy:
 - probe: ``prefix_sum`` on [256, 128] (the capability probe's input) and
   [32768, 128] int32 beside ``torch.cumsum``, ``fetch_i32`` on 128 x 32768
   int32 beside ``copy_``, in turns (kernel, library, library, kernel, six
-  times), each turn one call with the L2 flushed and ten back to back;
+  times), each turn one call with the L2 flushed and ten back to back; then
+  the launch floor: CP (``roofline.copy_blocked``) on one [8, 128] int32
+  tile, one call with the L2 flushed and ten back to back, six times;
 - match (M): the StreamVByte payload of the clean tier's first 8 MiB chunk
   (5,243,482 bytes, the own-tpu stage's input), all-zero bytes and uniform
   bytes of the same length (every position stops at the first offset, and
   almost none stops before the last), each against the plain scan, one
-  call with the L2 flushed and ten back to back beside the bound (N bytes
-  read, 4N written); the plain scan on the payload; the payload's copy to
-  the card and the int32 map's copy back through pageable memory, on the
-  host clock.
+  call with the L2 flushed and ten back to back beside the bound: the int32
+  offsets (N bytes read, 4N written) and, where the checkout has
+  ``match_index``, the uint8 index (N read, N written); the plain scans on
+  the payload; the payload's copy to the card and the int32 map's and the
+  index's copies back through pageable memory, on the host clock;
+- own: the own-tpu zstd stage at (0,2,1,1) host to host, the clean tier as
+  4 x 8 MiB chunks through the batch API and the 256 pseudo-reads through
+  ``compress_signals`` (one warm-up call, then three timed).
 For the codec inputs and each direction: one call with the L2 flushed and
 ten back to back, each the best of three (``profiling``'s ``cold_ms`` and
 ``warm_ms``), and the bound (the bytes the call must move at the data
@@ -64,6 +70,7 @@ from vbz_compression_tpu_torch.utils import profiling, roofline
 B, N = 4, 4 << 20
 FLUSH_BYTES = 256 << 20
 PROBE_TURNS = 6   # rounds of kernel, library, library, kernel
+OWN_REPEATS = 3   # timed calls of each own-tpu path
 W4_FLAVORS = ("zz32", "none32", "none16", "none8")
 W4_DTYPES = {"zz32": np.int32, "none32": np.int32, "none16": np.int16,
              "none8": np.int8}
@@ -210,15 +217,33 @@ def probe_turns(flush) -> dict:
     return times
 
 
+def launch_floor(flush) -> dict:
+    """CP (``roofline.copy_blocked``) on one [8, 128] int32 tile: the least a
+    launch costs on the card, one call with the L2 flushed and ten back to
+    back, PROBE_TURNS times."""
+    x = torch.arange(8 * 128, dtype=torch.int32, device="cuda").view(8, 128)
+    if not torch.equal(roofline.copy_blocked(x, 8), x):
+        raise SystemExit("copy_blocked [8, 128] differs from its input")
+    t = {"ms": [], "warm_ms": [], "bound_ms": roofline.bound_ms(2 * 4 * 1024)}
+    for _ in range(PROBE_TURNS):
+        t["ms"].append(profiling.cold_ms(
+            lambda: roofline.copy_blocked(x, 8), flush))
+        t["warm_ms"].append(profiling.warm_ms(
+            lambda: roofline.copy_blocked(x, 8)))
+    return t
+
+
 def match_times(flush, payload: bytes | None = None) -> dict:
     """M on the payload (``signals.clean_payload()`` unless given), zeros
-    and uniform bytes (see the module docstring); the plain scan and the
-    copies on the payload."""
+    and uniform bytes (see the module docstring), int32 and, where the
+    checkout has it, the uint8 index; the plain scans and the copies on the
+    payload."""
     from vbz_compression_tpu_torch.ops import zstd_match
 
     payload = np.frombuffer(payload or signals.clean_payload(), np.uint8)
     n = payload.size
     rng = np.random.default_rng(0)
+    index = getattr(zstd_match, "match_index", None)
     out = {}
     for label, buf in (("payload", payload), ("zeros", np.zeros(n, np.uint8)),
                        ("uniform", rng.integers(0, 256, n).astype(np.uint8))):
@@ -233,10 +258,20 @@ def match_times(flush, payload: bytes | None = None) -> dict:
             "warm_ms": profiling.warm_ms(
                 lambda: zstd_match.match_candidates(x)),
             "bound_ms": roofline.bound_ms(5 * n)}
+        if index is not None:
+            want_index = zstd_match.match_index_plain(x)
+            if not torch.equal(index(x), want_index):
+                raise SystemExit(f"match index {label} differs from plain")
+            t.update(index_ms=profiling.cold_ms(lambda: index(x), flush),
+                     index_warm_ms=profiling.warm_ms(lambda: index(x)),
+                     index_bound_ms=roofline.bound_ms(2 * n))
         if label == "payload":
             t["plain_ms"] = profiling.warm_ms(
                 lambda: zstd_match.match_candidates_plain(x), 3)
-            h2d, d2h = [], []
+            if index is not None:
+                t["index_plain_ms"] = profiling.warm_ms(
+                    lambda: zstd_match.match_index_plain(x), 3)
+            h2d, d2h, index_d2h = [], [], []
             for _ in range(5):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -249,7 +284,46 @@ def match_times(flush, payload: bytes | None = None) -> dict:
                 off.cpu()
                 h2d.append((t1 - t0) * 1e3)
                 d2h.append((time.perf_counter() - t2) * 1e3)
+                if index is not None:
+                    places = index(dev)
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    places.cpu()
+                    index_d2h.append((time.perf_counter() - t3) * 1e3)
             t["copy_in_host_ms"], t["map_back_host_ms"] = h2d, d2h
+            if index is not None:
+                t["index_back_host_ms"] = index_d2h
+    return out
+
+
+def own_tpu_times() -> dict:
+    """The own-tpu zstd stage at (0,2,1,1) host to host: the clean tier as
+    4 x 8 MiB chunks through the batch API and the 256 pseudo-reads through
+    ``compress_signals``, one warm-up call and OWN_REPEATS timed calls
+    each."""
+    from vbz_compression_tpu_torch import CompressionOptions, api, bench
+    from vbz_compression_tpu_torch.parallel import multihost
+
+    opts = CompressionOptions.from_cd_values((0, 2, 1, 1))
+    chunks = list(signals.TIERS["clean"](B, N))
+    reads = signals.pseudo_reads()
+    out = {}
+    with bench.encoder_env("own-tpu"):
+        for label, fn, raw in (
+                ("batch API, clean 4 x 8 MiB",
+                 lambda: api.vbz_compress_sized_batch(chunks, opts),
+                 sum(c.nbytes for c in chunks)),
+                ("compress_signals, 256 pseudo-reads",
+                 lambda: multihost.compress_signals(reads, opts),
+                 sum(r.nbytes for r in reads))):
+            fn()
+            seconds = []
+            for _ in range(OWN_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                seconds.append(time.perf_counter() - t0)
+            out[f"own-tpu {label}"] = {"s": seconds, "bytes": raw}
     return out
 
 
@@ -257,12 +331,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON result here")
     ap.add_argument("--only", action="append",
-                    choices=("w2", "w4", "v1", "probe", "match"),
+                    choices=("w2", "w4", "v1", "probe", "match", "own"),
                     help="time only these groups (repeatable; default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device is visible")
-    groups = args.only or ["w2", "w4", "v1", "probe", "match"]
+    groups = args.only or ["w2", "w4", "v1", "probe", "match", "own"]
     smi = profiling.card()
     print(smi)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -306,19 +380,36 @@ def main() -> int:
                   f"cold, {min(t['library_warm_ms']):.4f}-"
                   f"{max(t['library_warm_ms']):.4f} warm; bound "
                   f"{t['bound_ms']:.5f}")
+        times["launch floor"] = t = launch_floor(flush)
+        print(f"  launch floor: CP on [8, 128] int32 {min(t['ms']):.4f}-"
+              f"{max(t['ms']):.4f} ms cold, {min(t['warm_ms']):.4f}-"
+              f"{max(t['warm_ms']):.4f} warm; bound {t['bound_ms']:.7f}")
     if "match" in groups:
         for label, t in match_times(flush).items():
             times[label] = t
             extra = ""
+            if "index_ms" in t:
+                extra += (f"; index {t['index_ms']:.4f} cold, "
+                          f"{t['index_warm_ms']:.4f} warm, bound "
+                          f"{t['index_bound_ms']:.5f}")
             if "plain_ms" in t:
-                extra = (f"; plain {t['plain_ms']:.3f}; copy in "
-                         f"{min(t['copy_in_host_ms']):.3f}-"
-                         f"{max(t['copy_in_host_ms']):.3f} ms, map back "
-                         f"{min(t['map_back_host_ms']):.3f}-"
-                         f"{max(t['map_back_host_ms']):.3f} ms host to host")
+                extra += (f"; plain {t['plain_ms']:.3f}; copy in "
+                          f"{min(t['copy_in_host_ms']):.3f}-"
+                          f"{max(t['copy_in_host_ms']):.3f} ms, map back "
+                          f"{min(t['map_back_host_ms']):.3f}-"
+                          f"{max(t['map_back_host_ms']):.3f} ms host to host")
+            if "index_back_host_ms" in t:
+                extra += (f", index back "
+                          f"{min(t['index_back_host_ms']):.3f}-"
+                          f"{max(t['index_back_host_ms']):.3f} ms")
             print(f"  {label:14s} [{t['n']}] M {t['ms']:.4f} ms cold, "
                   f"{t['warm_ms']:.4f} warm, bound {t['bound_ms']:.5f}, "
                   f"{t['candidates']} candidates{extra}")
+    if "own" in groups:
+        for label, t in own_tpu_times().items():
+            times[label] = t
+            print(f"  {label}: {min(t['s']):.3f}-{max(t['s']):.3f} s host to "
+                  f"host, {t['bytes'] / min(t['s']) / 1e9:.4f} GB/s at best")
     text = json.dumps({"card": smi, "times": times})
     print(text)
     if args.out:
