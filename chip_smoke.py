@@ -10,7 +10,8 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      power limit;
   2. build: compiles the six kernel libraries from
      vbz_compression_tpu_torch/csrc (the three codecs, the copy, the
-     probe, the match scan), one nvcc per source, all at once;
+     probe, the match scan), one nvcc per source, all at once; then
+     native/'s three libraries (phase 11), one g++ each, all at once;
   3. kernels against their plain PyTorch versions on the card, bit for bit,
      one row of each case also against the port's NumPy oracle:
      E/D (W2) on the int16 tiers (B=4 rows of 4M), the int16 wrap
@@ -81,19 +82,44 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      plain versions and bounds (5N and 2N bytes), and the scan's copies
      timed apart (the payload in, the int32 map and the index back); then
      two paths at cd_values (0,2,1,1)
-     with VBZ_ZSTD_ENCODER=own-tpu, each frame byte for byte the same call's
+     with VBZ_ZSTD_ENCODER=own-tpu (the encoder's native branches on, as
+     they are by default where libvbz_native.so builds; phase 11 times them
+     against the NumPy branches), each frame byte for byte the same call's
      on the CPU with the plain scan: (a) the clean tier as 4 x 8 MiB chunks
      through vbz_compress_sized_batch, timed host to host and split into
      the scan (copy in, M's index, copy back) and the host's encoder, its
      frames' size beside the own host matcher's; (b) compress_signals on the
      256 pseudo-reads. E and M's index must launch on both (counts set to 0
-     just before each path and read just after).
+     just before each path and read just after);
+ 11. the native host runtime, over native/'s three libraries that phase 2
+     built (utils/_native_build.py: libvbz_native.so, libvbz_hdf_plugin.so,
+     libfast5_reader.so; with the system's zstd.h, else, printed with the
+     compiler's first error line, with the port's declarations of libzstd's
+     ABI against libzstd.so.1; a failed build ends the run): (a) phase
+     10's two own-tpu paths again, in turns with the encoder's native
+     branches and with them patched off
+     (zstd_seq._native_lz and zstd_huff._native_bits returning None), best
+     of REPEATS each, every frame byte for byte phase 10's, the native calls
+     counted (native_backend.CALLS) on the native turns and none on the
+     NumPy turns, E and M's index launched on both; (b) every own-tpu frame
+     of (a) decoded through the native C ABI (vbz_decompress_sized, libzstd
+     in C: the first level-1 decode on a machine without zstandard) to its
+     input; (c) NativeSvbBackend through the batch API on phase 4's 64-read
+     corpus at (0,2,1,0), every frame phase 4's oracle frame, and back;
+     (d) the pseudo-reads through the batch API with NativeSvbBackend at
+     (0,2,1,1), own-tpu (the gil_free_svb branch: each chunk's whole
+     pipeline in the pool, M on the card), the frames of (a); (e) the C ABI
+     vbz_compress_sized / vbz_decompress_sized at (0,2,1,1) on the 64-read
+     corpus, round trip; (f) the fast5 reader: which libhdf5 it found, or
+     that none was (it reads no file here: no fast5 file can be written
+     without h5py).
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -176,22 +202,28 @@ class Port:
         import torch
 
         import vbz_compression_tpu_torch as pkg
-        from vbz_compression_tpu_torch import api, bench, signals
+        from vbz_compression_tpu_torch import (api, bench, native_backend,
+                                               signals)
         from vbz_compression_tpu_torch.models import codec
         from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1,
-                                                   svb_w2, svb_w4, zstd_match,
-                                                   zstd_seq)
+                                                   svb_w2, svb_w4, zstd_huff,
+                                                   zstd_match, zstd_seq)
         from vbz_compression_tpu_torch.parallel import multihost, sharded
         from vbz_compression_tpu_torch.tools import (capability_probe,
                                                      kernel_times)
-        from vbz_compression_tpu_torch.utils import profiling, roofline
+        from vbz_compression_tpu_torch.utils import (_native_build,
+                                                     native_fast5, profiling,
+                                                     roofline)
 
         self.torch, self.pkg, self.api, self.signals = torch, pkg, api, signals
         self.codec, self.multihost, self.sharded = codec, multihost, sharded
         self.build, self.bench, self.probe = _build, bench, capability_probe
         self.times = kernel_times
         self.probes, self.profiling, self.roofline = probes, profiling, roofline
-        self.match, self.zstd_seq = zstd_match, zstd_seq
+        self.match, self.zstd_seq, self.zstd_huff = (zstd_match, zstd_seq,
+                                                     zstd_huff)
+        self.native, self.native_build = native_backend, _native_build
+        self.native_fast5 = native_fast5
         self.mods = {"w2": svb_w2, "w4": svb_w4, "v1": svb_v1}
         self.fns = {
             "w2": (svb_w2.encode_w2_rows, svb_w2.encode_w2_rows_plain,
@@ -611,7 +643,8 @@ def main_path(port: Port, reads, cd_values, pair: str) -> dict:
            "frame_bytes": sum(len(f) for f in frames),
            "launches": {k: v for k, v in launches.items() if v},
            "enc_s": enc_s, "dec_s": dec_s,
-           "enc_gb_s": raw / enc_s / 1e9, "dec_gb_s": raw / dec_s / 1e9}
+           "enc_gb_s": raw / enc_s / 1e9, "dec_gb_s": raw / dec_s / 1e9,
+           "frames": frames}  # main() keeps NATIVE_OPTIONS' for phase 11
     print(f"  options {cd_values} ({out['content']}): {len(reads)} reads, "
           f"{raw} bytes -> {out['frame_bytes']} framed; every frame equals "
           f"the oracle's, every read round-trips; launches "
@@ -1053,11 +1086,11 @@ def scan_split(port: Port, payloads: list) -> dict:
             "host_s": frame_s - scan_s}
 
 
-def own_tpu_paths(port: Port, chunks: list, reads: list) -> list:
+def own_tpu_paths(port: Port, chunks: list, reads: list) -> tuple:
     """(a) the clean chunks through the batch API and (b) the pseudo-reads
     through compress_signals at OWN_OPTIONS with VBZ_ZSTD_ENCODER=own-tpu:
     E and M launched, every frame the same call's on the CPU with the plain
-    scan. Returns the two runs."""
+    scan. Returns the two runs and their frames."""
     api, torch, pkg = port.api, port.torch, port.pkg
     opts = pkg.CompressionOptions.from_cd_values(OWN_OPTIONS)
     cpu = port.codec.TorchSvbBackend("cpu")
@@ -1127,7 +1160,245 @@ def own_tpu_paths(port: Port, chunks: list, reads: list) -> list:
           f"{raw_b} bytes -> {run_b['frame_bytes']} framed; frames equal the "
           f"CPU path's; launches {run_b['launches']}; {corpus_s:.3f} s host "
           f"to host ({run_b['gb_s']:.4f} GB/s, one call)")
-    return [run_a, run_b]
+    return [run_a, run_b], frames, corpus
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the native host runtime
+# ---------------------------------------------------------------------------
+
+NATIVE_OPTIONS = (0, 2, 1, 0)  # NativeSvbBackend against phase 4's frames
+
+
+@contextlib.contextmanager
+def numpy_branches(port: Port, on: bool = True):
+    """With ``on``, the own zstd encoder with its native branches patched
+    off, as tests/test_torch_native.py does: the NumPy code runs."""
+    mods = ((port.zstd_seq, "_native_lz"), (port.zstd_huff, "_native_bits"))
+    saved = [getattr(m, a) for m, a in mods]
+    if on:
+        for m, a in mods:
+            setattr(m, a, lambda: None)
+    try:
+        yield
+    finally:
+        for (m, a), fn in zip(mods, saved):
+            setattr(m, a, fn)
+
+
+def native_build(port: Port) -> dict:
+    """Build native/'s three libraries (phase 2); print the compiler, the
+    zstd route and each build's seconds. A failed build raises (the run
+    ends)."""
+    import subprocess
+
+    nb = port.native_build
+    gxx = subprocess.run([nb.CXX, "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    err = nb.zstd_header_error()
+    print(f"  {gxx}")
+    if err is None:
+        print("  zstd.h: the system's; -lzstd")
+    else:
+        print(f"  zstd.h: absent on this machine ({err}); libzstd through "
+              "the port's declarations (vbz_compression_tpu_torch/"
+              "native_include/zstd.h), linked against libzstd.so.1")
+    built = nb.build()
+    for name, (path, secs) in built.items():
+        print(f"  build: {path.relative_to(nb.BUILD_ROOT.parent.parent)} in "
+              f"{secs:.1f} s")
+    return {"gxx": gxx, "zstd_header_error": err,
+            "zstd_route": nb.zstd_route(),
+            "build_s": {k: v for k, (_p, v) in built.items()}}
+
+
+def _native_moved(port: Port, before: dict) -> dict:
+    return {k: v - before[k] for k, v in port.native.CALLS.items()
+            if v != before[k]}
+
+
+def own_tpu_turns(port: Port, chunks: list, frames: list, reads: list,
+                  corpus: list) -> tuple:
+    """Phase 10's two own-tpu paths, in turns with the encoder's native
+    branches and without, REPEATS turns each: every frame phase 10's, the
+    native calls counted on the native turns only, E and M's index launched
+    on every run. Returns the best times, the counts and each branch's
+    last launches."""
+    api, torch = port.api, port.torch
+    opts = port.pkg.CompressionOptions.from_cd_values(OWN_OPTIONS)
+    best = {b: {"batch_s": float("inf"), "corpus_s": float("inf")}
+            for b in ("native", "numpy")}
+    calls, launches = {}, {}
+    with port.bench.encoder_env("own-tpu"):
+        for _ in range(REPEATS):
+            for branch in ("native", "numpy"):
+                with numpy_branches(port, on=branch == "numpy"):
+                    for path, fn, want, key in (
+                            ("batch API", lambda: api.vbz_compress_sized_batch(
+                                chunks, opts), frames, "batch_s"),
+                            ("compress_signals",
+                             lambda: port.multihost.compress_signals(
+                                 reads, opts), corpus, "corpus_s")):
+                        before = dict(port.native.CALLS)
+                        torch.cuda.synchronize()
+                        port.zero_counts()
+                        t0 = time.perf_counter()
+                        got = fn()
+                        dt = time.perf_counter() - t0
+                        ran = port.counts()
+                        moved = _native_moved(port, before)
+                        what = f"own-tpu {path} ({branch} branches)"
+                        port.require_launched(what, ran,
+                                              ("w2_encode", "match_index"))
+                        if got != want:
+                            raise SystemExit(f"{what}: frames differ from "
+                                             "phase 10's")
+                        if (branch == "native") != bool(moved):
+                            raise SystemExit(f"{what}: native calls {moved}")
+                        best[branch][key] = min(best[branch][key], dt)
+                        calls[f"{branch} {path}"] = moved
+                        launches[f"{branch} {path}"] = {
+                            k: v for k, v in ran.items() if v}
+    return best, calls, launches
+
+
+def native_runtime(port: Port, built: dict, chunks: list, frames: list,
+                   reads: list, corpus: list, corpus64: list,
+                   oracle_frames: list) -> dict:
+    """Phase 11 (see the module's docstring) over the libraries that phase 2
+    built (``built``, :func:`native_build`'s result). Returns its numbers
+    and its runs, each with the kernel launches counted over it."""
+    api, torch, nb = port.api, port.torch, port.native
+    out = dict(built)
+    runs = []
+    print(f"  native libraries built in phase 2 ({built['gxx']}; zstd "
+          f"{built['zstd_route']}: "
+          f"{built['zstd_header_error'] or 'the system header'})")
+
+    # (a) own-tpu with and without the native branches, in turns.
+    best, calls, launches = own_tpu_turns(port, chunks, frames, reads, corpus)
+    raw_a = sum(c.nbytes for c in chunks)
+    raw_b = sum(r.nbytes for r in reads)
+    for branch in ("native", "numpy"):
+        t = best[branch]
+        print(f"  own-tpu batch API {OWN_OPTIONS}, {branch} branches: "
+              f"{t['batch_s']:.4f} s host to host "
+              f"({raw_a / t['batch_s'] / 1e9:.4f} GB/s, best of {REPEATS})")
+        print(f"  own-tpu compress_signals {OWN_OPTIONS}, {branch} branches: "
+              f"{t['corpus_s']:.4f} s host to host "
+              f"({raw_b / t['corpus_s'] / 1e9:.4f} GB/s, best of {REPEATS})")
+    for key in calls:
+        print(f"  {key}: native calls {calls[key]}")
+        print(f"  {key}: launches {launches[key]}")
+        runs.append({"path": f"own-tpu {key}", "launches": launches[key]})
+    print("  own-tpu frames with and without the native branches: equal to "
+          "phase 10's, byte for byte")
+    out.update(own_tpu=best, native_calls=calls, own_tpu_launches=launches,
+               own_tpu_bytes={"batch": raw_a, "corpus": raw_b})
+
+    # (b) every own-tpu frame decoded through the native C ABI.
+    opts = port.pkg.CompressionOptions.from_cd_values(OWN_OPTIONS)
+    before = dict(nb.CALLS)
+    t0 = time.perf_counter()
+    for f, c in zip(frames + corpus, chunks + reads):
+        if nb.vbz_decompress_sized(f, opts) != c.tobytes():
+            raise SystemExit("native C ABI: an own-tpu frame does not decode "
+                             "to its input")
+    dec_s = time.perf_counter() - t0
+    n = len(frames) + len(corpus)
+    moved = _native_moved(port, before)
+    if moved.get("vbz_decompress_sized") != n:
+        raise SystemExit(f"native C ABI decode: calls {moved}")
+    print(f"  level-1 decode through the native C ABI: {n} own-tpu frames, "
+          f"{raw_a + raw_b} bytes, every one its input; {dec_s:.4f} s host "
+          f"to host ({(raw_a + raw_b) / dec_s / 1e9:.4f} GB/s, one pass); "
+          f"native calls {moved}")
+    out["level1_decode"] = {"frames": n, "bytes": raw_a + raw_b, "s": dec_s}
+
+    # (c) NativeSvbBackend on phase 4's corpus against its oracle frames.
+    o = port.pkg.CompressionOptions.from_cd_values(NATIVE_OPTIONS)
+    before = dict(nb.CALLS)
+    t0 = time.perf_counter()
+    got = api.vbz_compress_sized_batch(corpus64, o, backend=nb.native_backend)
+    t1 = time.perf_counter()
+    back = api.vbz_decompress_sized_batch(got, o, backend=nb.native_backend)
+    t2 = time.perf_counter()
+    moved = _native_moved(port, before)
+    if got != oracle_frames:
+        raise SystemExit(f"NativeSvbBackend {NATIVE_OPTIONS}: frames differ "
+                         "from phase 4's oracle frames")
+    for r, b in zip(corpus64, back):
+        if b != r.tobytes():
+            raise SystemExit(f"NativeSvbBackend {NATIVE_OPTIONS}: a read does "
+                             "not round-trip")
+    if (moved.get("vbz_compress"), moved.get("vbz_decompress")) != \
+            (len(corpus64), len(corpus64)):
+        raise SystemExit(f"NativeSvbBackend: calls {moved}")
+    raw64 = sum(r.nbytes for r in corpus64)
+    print(f"  NativeSvbBackend batch API {NATIVE_OPTIONS}: {len(corpus64)} "
+          f"reads, {raw64} bytes, every frame phase 4's oracle frame, every "
+          f"read back; encode {t1 - t0:.4f} s, decode {t2 - t1:.4f} s host "
+          f"to host (one pass); native calls {moved}")
+    out["native_backend"] = {"options": list(NATIVE_OPTIONS), "bytes": raw64,
+                             "enc_s": t1 - t0, "dec_s": t2 - t1}
+
+    # (d) NativeSvbBackend with own-tpu: the gil_free_svb branch, M on the
+    # card.
+    with port.bench.encoder_env("own-tpu"):
+        before = dict(nb.CALLS)
+        torch.cuda.synchronize()
+        port.zero_counts()
+        t0 = time.perf_counter()
+        got = api.vbz_compress_sized_batch(reads, opts,
+                                           backend=nb.native_backend)
+        dt = time.perf_counter() - t0
+        ran = port.counts()
+        moved = _native_moved(port, before)
+    port.require_launched("NativeSvbBackend own-tpu", ran, ("match_index",))
+    if got != corpus:
+        raise SystemExit("NativeSvbBackend own-tpu: frames differ from "
+                         "compress_signals'")
+    if moved.get("vbz_compress") != len(reads) or \
+            not moved.get("vbz_lz_sequences"):
+        raise SystemExit(f"NativeSvbBackend own-tpu: calls {moved}")
+    ran = {k: v for k, v in ran.items() if v}
+    runs.append({"path": f"NativeSvbBackend own-tpu {OWN_OPTIONS}",
+                 "launches": ran})
+    print(f"  NativeSvbBackend batch API {OWN_OPTIONS}, own-tpu: "
+          f"{len(reads)} reads, frames equal compress_signals'; {dt:.4f} s "
+          f"host to host (one pass); launches {ran}; native calls {moved}")
+    out["native_backend_own_tpu_s"] = dt
+
+    # (e) the sized C ABI at (0,2,1,1): stock libzstd level 1.
+    before = dict(nb.CALLS)
+    t0 = time.perf_counter()
+    sized = [nb.vbz_compress_sized(r, opts) for r in corpus64]
+    t1 = time.perf_counter()
+    for r, f in zip(corpus64, sized):
+        if nb.vbz_decompress_sized(f, opts) != r.tobytes():
+            raise SystemExit("native C ABI: a read does not round-trip")
+    t2 = time.perf_counter()
+    moved = _native_moved(port, before)
+    print(f"  native C ABI {OWN_OPTIONS}: {len(corpus64)} reads, {raw64} "
+          f"bytes -> {sum(map(len, sized))} framed, every read back; "
+          f"compress {t1 - t0:.4f} s, decompress {t2 - t1:.4f} s host to "
+          f"host (one pass); native calls {moved}")
+    out["c_abi"] = {"options": list(OWN_OPTIONS), "bytes": raw64,
+                    "frame_bytes": sum(map(len, sized)),
+                    "enc_s": t1 - t0, "dec_s": t2 - t1}
+
+    # (f) the fast5 reader.
+    hdf5 = port.native_fast5._find_hdf5()
+    try:
+        port.native_fast5._load()
+        reader = f"libhdf5 loaded ({hdf5 or 'a name the reader tries'})"
+    except OSError as exc:
+        reader = f"no libhdf5 (h5py's or find_library('hdf5'): {hdf5}): {exc}"
+    print(f"  fast5 reader: built; {reader}; no fast5 file read (writing "
+          "one takes h5py, which the card's machine lacks)")
+    out["fast5_reader"] = reader
+    out["runs"] = runs
+    return out
 
 
 def main() -> int:
@@ -1161,6 +1432,7 @@ def main() -> int:
         port.build.lib(name)
         print(f"build: {path.relative_to(port.build.BUILD_ROOT.parent.parent)}"
               f" in {secs:.1f} s")
+    native_built = native_build(port)
     lap("2 build")
 
     # Phase 3: kernels against the plain versions.
@@ -1186,7 +1458,10 @@ def main() -> int:
         reads = reads16 if content == "int16" else sig.corpus_of(content,
                                                                  lengths)
         runs.append(main_path(port, reads, cd_values, pair))
-        del reads
+        frames = runs[-1].pop("frames")
+        if cd_values == NATIVE_OPTIONS:
+            native_oracle_frames = frames
+        del reads, frames
     lap("4 main paths")
 
     # Phase 5: times.
@@ -1247,8 +1522,17 @@ def main() -> int:
     clean_chunks = list(tier_rows["clean"])
     match, match_index = check_match(port, port.pkg.oracle.svb_compress(
         clean_chunks[0], 2, True, 0))
-    runs += own_tpu_paths(port, clean_chunks, pseudo)
+    own_runs, own_frames, own_corpus = own_tpu_paths(port, clean_chunks,
+                                                     pseudo)
+    runs += own_runs
     lap("10 own-tpu zstd stage")
+
+    # Phase 11: the native host runtime.
+    print("native host runtime:")
+    native = native_runtime(port, native_built, clean_chunks, own_frames,
+                            pseudo, own_corpus, reads16, native_oracle_frames)
+    runs += native.pop("runs")
+    lap("11 native host runtime")
     for mod in ("jax", "vbz_compression_tpu"):
         if mod in sys.modules or any(m.startswith(mod + ".")
                                      for m in sys.modules):
@@ -1298,6 +1582,7 @@ def main() -> int:
                         "uint8, L2 flushed before the call"})
     print(json.dumps({"times": times, "main_paths": runs, "aux": aux,
                       "match": match, "match_index": match_index,
+                      "native": native,
                       "bench": bench_lines,
                       "probe_device_ops": probe_result["device_ops"],
                       "card": smi, "seconds": seconds}))

@@ -107,11 +107,17 @@ def test_stage_replays_match_api():
 
 
 def test_default_backend_choice(monkeypatch):
+    """torch is the CPU, native the C++ codec, any other name raises; unset,
+    the card, and without one it raises."""
+    from vbz_compression_tpu_torch.native_backend import NativeSvbBackend
+
     monkeypatch.setenv("VBZ_BACKEND", "torch")
     assert api.default_backend().device == torch.device("cpu")
-    for other in ("native", "cuda"):
+    monkeypatch.setenv("VBZ_BACKEND", "native")
+    assert isinstance(api.default_backend(), NativeSvbBackend)
+    for other in ("cuda", "jax", "scalar"):
         monkeypatch.setenv("VBZ_BACKEND", other)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="torch or native"):
             api.default_backend()
     monkeypatch.delenv("VBZ_BACKEND")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -195,7 +201,10 @@ def test_import_leaves_jax_out():
             "'parallel.sharded', 'parallel.multihost', 'parallel.dryrun', "
             "'utils.hdf5_chunks', 'tools.fast5vbz', 'tools.multihost_smoke', "
             "'tools.corpus_times', 'ops.fse', 'ops.zstd_huff', "
-            "'ops.zstd_seq', 'ops.zstd_match'}\n"
+            "'ops.zstd_seq', 'ops.zstd_match', 'native_backend', "
+            "'utils._native_build', 'utils.native_fast5', "
+            "'utils.h5py_helpers', 'tools.h5repack_vbz', "
+            "'tools.benchmark_hdf5'}\n"
             "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
             "assert not missing, missing\n"
             "chip_smoke.Port()\n"

@@ -8,8 +8,10 @@ versions, the prefix sum also on tile edges and in repeated calls, the
 butterfly at every stage count around its tile edges in one launch; the
 data-parallel plane and the corpus driver against the oracle; the match
 scan M at both widths against its plain versions (``signals.match_cases``,
-the clean payload, views off alignment, repeated calls, threads) and the
-own-tpu zstd stage's frames against the CPU path's. Exact.
+the clean payload, views off alignment, repeated calls, threads), the
+own-tpu zstd stage's frames against the CPU path's and, with the native
+encoder branches, against the NumPy branches'; level-1 frames decoded
+through the native C ABI. Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -673,6 +675,60 @@ def test_own_tpu_frames_match_cpu_on_card(cuda_device, monkeypatch):
     data = signals.clean_payload()[:300_000]
     assert zstd_seq.compress_frame(data, "device", cuda_device) == \
         zstd_seq.compress_frame(data, "device", "cpu")
+
+
+def _native_counts():
+    from vbz_compression_tpu_torch import native_backend
+
+    return dict(native_backend.CALLS)
+
+
+@pytest.mark.cuda
+def test_own_tpu_native_branches_match_numpy_on_card(cuda_device,
+                                                     monkeypatch):
+    """own-tpu through the batch API and the corpus driver on the card at
+    (0,2,1,1): with the native encoder branches (libvbz_native.so, built
+    here from native/) the frames of the NumPy branches, M's index launched
+    both times and the C sequence scan only the first."""
+    monkeypatch.setenv("VBZ_ZSTD_ENCODER", "own-tpu")
+    opts = CompressionOptions.from_cd_values((0, 2, 1, 1))
+    reads = signals.pseudo_reads(6) + [np.zeros(0, np.int16),
+                                       np.arange(3, dtype=np.int16)]
+    backend = TorchSvbBackend(cuda_device)
+    before, launches = _native_counts(), zstd_match.LAUNCHES["match_index"]
+    frames = api.vbz_compress_sized_batch(reads, opts, backend=backend)
+    corpus = multihost.compress_signals(reads, opts, device=cuda_device)
+    after = _native_counts()
+    assert after["vbz_lz_sequences"] > before["vbz_lz_sequences"]
+    assert after["vbz_zstd_seq_bitstream"] > before["vbz_zstd_seq_bitstream"]
+    assert zstd_match.LAUNCHES["match_index"] - launches == 14
+    from vbz_compression_tpu_torch.ops import zstd_huff
+
+    monkeypatch.setattr(zstd_seq, "_native_lz", lambda: None)
+    monkeypatch.setattr(zstd_huff, "_native_bits", lambda: None)
+    assert api.vbz_compress_sized_batch(reads, opts,
+                                        backend=backend) == frames
+    assert multihost.compress_signals(reads, opts,
+                                      device=cuda_device) == corpus
+    assert _native_counts() == after
+
+
+@pytest.mark.cuda
+def test_level1_frames_decode_natively_on_card(cuda_device, monkeypatch):
+    """Level-1 frames (own-tpu on the card) decode through the native C
+    ABI, which runs libzstd in C where no zstandard package is installed;
+    the C ABI's own level-1 frames round-trip too."""
+    from vbz_compression_tpu_torch import native_backend
+
+    monkeypatch.setenv("VBZ_ZSTD_ENCODER", "own-tpu")
+    opts = CompressionOptions.from_cd_values((0, 2, 1, 1))
+    reads = signals.pseudo_reads(4) + [np.zeros(0, np.int16)]
+    frames = api.vbz_compress_sized_batch(reads, opts,
+                                          backend=TorchSvbBackend(cuda_device))
+    for r, f in zip(reads, frames):
+        assert native_backend.vbz_decompress_sized(f, opts) == r.tobytes()
+        own = native_backend.vbz_compress_sized(r, opts)
+        assert native_backend.vbz_decompress_sized(own, opts) == r.tobytes()
 
 
 @pytest.mark.cuda

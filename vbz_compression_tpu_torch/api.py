@@ -9,11 +9,18 @@ or the from-scratch RFC 8878 encoder of ``ops.zstd_seq`` that
 ``VBZ_ZSTD_ENCODER`` chooses) and the 4-byte little-endian sized framing.
 The StreamVByte stage is the ``backend=`` argument: a
 :class:`~.models.codec.TorchSvbBackend`, or any object with the same
-methods, such as the NumPy oracle (``oracle``).
+methods, such as the NumPy oracle (``oracle``) or the native C++ codec
+(:class:`~.native_backend.NativeSvbBackend`).
 
-``default_backend()`` is the CUDA backend when a card is visible. Setting
-``VBZ_BACKEND=torch`` chooses the plain PyTorch version on the CPU instead.
-Without either it raises: nothing moves silently to another codec.
+``default_backend()`` is the CUDA backend when a card is visible.
+``VBZ_BACKEND=torch`` chooses the plain PyTorch version on the CPU instead,
+``VBZ_BACKEND=native`` the native C++ codec on the CPU (built from
+``native/`` at first use). Without a card and without the variable it
+raises: nothing moves silently to another codec.
+
+A backend that sets ``gil_free_svb`` (the native codec: its ctypes calls
+release the interpreter lock) runs each chunk's whole pipeline, StreamVByte
+and zstd, in the batch calls' thread pool, as the JAX package's api does.
 """
 
 from __future__ import annotations
@@ -38,16 +45,26 @@ from .options import CompressionOptions
 SIZED_HEADER_BYTES = 4  # VbzSizedHeader{uint32 original_size}, vbz/vbz.cpp:52-55
 
 
-def default_backend() -> TorchSvbBackend:
+def _require_card() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device visible; set VBZ_BACKEND=torch to "
+                           "run the plain PyTorch version on the CPU, or "
+                           "VBZ_BACKEND=native for the native C++ codec")
+
+
+def default_backend():
     forced = os.environ.get("VBZ_BACKEND", "").lower()
     if forced == "torch":
         return TorchSvbBackend("cpu")
+    if forced == "native":
+        from . import native_backend
+
+        native_backend.lib()
+        return native_backend.NativeSvbBackend()
     if forced:
         raise ValueError(f"unknown VBZ_BACKEND {forced!r} for the PyTorch "
-                         "port (want torch, or leave it unset)")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device visible; set VBZ_BACKEND=torch to "
-                           "run the plain PyTorch version on the CPU")
+                         "port (want torch or native, or leave it unset)")
+    _require_card()
     return TorchSvbBackend("cuda")
 
 
@@ -86,12 +103,17 @@ def zstd_encoder(encoder: str | None = None) -> str:
 
 
 def scan_device(backend=None) -> torch.device:
-    """The device of the "own-tpu" match scan: the backend's where it has
-    one, else :func:`default_backend`'s (the card, or the CPU under
-    ``VBZ_BACKEND=torch``; it raises with neither)."""
+    """The device of the "own-tpu" match scan (and of the corpus driver's
+    rows): the backend's where it has one, else :func:`default_backend`'s
+    (the card, or the CPU under ``VBZ_BACKEND=torch``), else the card (the
+    backend is a host codec: the oracle, or the native codec); it raises
+    without one."""
     device = getattr(backend, "device", None)
     if device is None:
-        device = default_backend().device
+        device = getattr(default_backend(), "device", None)
+    if device is None:
+        _require_card()
+        device = "cuda"
     return torch.device(device)
 
 
@@ -306,6 +328,27 @@ def vbz_compress_sized_batch(chunks, options: CompressionOptions,
     raws = [_as_bytes(c) for c in chunks]
     headers = [struct.pack("<I", len(r)) for r in raws]
     current = raws
+    if options.integer_size != 0 and options.zstd_compression_level != 0 \
+            and getattr(backend, "svb_compress_batch", None) is None \
+            and getattr(backend, "gil_free_svb", False):
+        # Host codec with both stages active: run the WHOLE per-chunk
+        # pipeline in the thread pool — this backend's svb stage advertises
+        # that it releases the GIL (gil_free_svb), and libzstd does too, so
+        # svb and zstd parallelize across chunks instead of svb running as
+        # a serial prelude. Pure-Python backends skip this path (the pool
+        # would add overhead without parallelism).
+        options.validate_version()
+        device = _own_scan_device(backend)
+
+        def one(r):
+            s = backend.svb_compress(
+                r, options.integer_size, options.perform_delta_zig_zag,
+                options.vbz_version)
+            return zstd_compress(bytes(s), options.zstd_compression_level,
+                                 device=device)
+
+        return [h + bytes(x)
+                for h, x in zip(headers, _map_zstd(one, raws))]
     if options.integer_size != 0:
         options.validate_version()
         args = (options.integer_size, options.perform_delta_zig_zag,
@@ -334,6 +377,23 @@ def vbz_decompress_sized_batch(streams, options: CompressionOptions,
     raws = [_as_bytes(s) for s in streams]
     sizes = [vbz_decompressed_size(r, options) for r in raws]
     bodies = [r[SIZED_HEADER_BYTES:] for r in raws]
+    if options.zstd_compression_level != 0 and options.integer_size != 0 \
+            and getattr(backend, "svb_decompress_batch", None) is None \
+            and getattr(backend, "gil_free_svb", False):
+        # Host codec, both stages: whole per-chunk pipeline per thread
+        # (mirror of the compress path — both stages release the GIL).
+        options.validate_version()
+
+        def one(bd):
+            body, dst = bd
+            count = _check_destination(dst, options)
+            content = zstd_decompress(body, zstd_frame_content_size(body))
+            out = backend.svb_decompress(
+                content, count, options.integer_size,
+                options.perform_delta_zig_zag, options.vbz_version)
+            return np.ascontiguousarray(out).tobytes()
+
+        return _map_zstd(one, list(zip(bodies, sizes)))
     if options.zstd_compression_level != 0:
         content_sizes = [zstd_frame_content_size(b) for b in bodies]
         if options.integer_size == 0:

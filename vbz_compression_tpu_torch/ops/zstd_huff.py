@@ -24,12 +24,13 @@ bit-count with ties broken by "natural sequential order" — concretely, the
 values are ranked by (nbits, symbol) and codes count down from the top of
 each bit-length band; see build_codes().
 
-The port's copy of ``vbz_compression_tpu.ops.zstd_huff`` without its
-native branches (``_native_bits``: the code-length builder and the bit
-packer of ``native/vbz_native.cpp``). It keeps the NumPy packer, which gives
-the same bytes as the native one (``tests/test_zstd_seq.py::
-test_native_encoder_parity``); ``tests/test_torch_zstd.py`` holds this copy
-to the original's frames.
+The port's copy of ``vbz_compression_tpu.ops.zstd_huff``, native branches
+included: where ``libvbz_native.so`` builds (:mod:`..native_backend`), the
+code-length builder and the bit packer run in C (``vbz_huff_build_codes``,
+``vbz_bits_pack_backward``, counted in ``native_backend.CALLS``); else, or
+with ``_native_bits`` patched to return None, the NumPy code here, which
+gives the same bytes (``tests/test_torch_native.py``).
+``tests/test_torch_zstd.py`` holds this copy to the original's frames.
 """
 
 from __future__ import annotations
@@ -90,6 +91,22 @@ def build_codes(data: np.ndarray):
     nz = int((freqs > 0).sum())
     if nz <= 1:
         return None
+    lib = _native_bits()
+    if lib is not None and hasattr(lib, "vbz_huff_build_codes"):
+        import ctypes
+
+        from .. import native_backend as nb
+
+        f64 = np.ascontiguousarray(freqs.astype(np.int64))
+        nbits = np.zeros(256, np.uint8)
+        code = np.zeros(256, np.uint16)
+        max_bits = int(nb.call(
+            "vbz_huff_build_codes", f64.ctypes.data_as(ctypes.c_void_p),
+            MAX_CODE_BITS, nbits.ctypes.data_as(ctypes.c_void_p),
+            code.ctypes.data_as(ctypes.c_void_p)))
+        weights = np.where(nbits > 0, max_bits + 1 - nbits.astype(np.int32),
+                           0).astype(np.int32)
+        return nbits, code, weights, max_bits
     nbits = _length_limited_lengths(freqs, MAX_CODE_BITS)
     max_bits = int(nbits.max())
     # zstd weights: weight = max_bits + 1 - nbits (0 for absent symbols).
@@ -106,8 +123,8 @@ def build_codes(data: np.ndarray):
             code[s] = cur
             cur += 1
         cur >>= 1  # moving to one bit shorter halves the next start
-    # u16 codes / u8 lengths, the types the JAX package's native bit
-    # packer takes.
+    # u16 codes / u8 lengths: code[chunk] / nbits[chunk] feed the native
+    # bit packer without per-call astype copies.
     return nbits.astype(np.uint8), code, weights, max_bits
 
 
@@ -151,9 +168,37 @@ def _check_implied_weight(weights: np.ndarray, max_bits: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _native_bits():
+    """The native bit packer (vbz_native.cpp) when the lib is built."""
+    try:
+        from .. import native_backend as nb
+
+        lib = nb.lib()
+        return lib if hasattr(lib, "vbz_bits_pack_backward") else None
+    except Exception:
+        return None
+
+
 def pack_bits_backward(codes: np.ndarray, nbits: np.ndarray) -> bytes:
     """zstd Huffman stream: symbols pushed LSB-first in *reverse* input
     order, closed with a single 1 sentinel bit, padded to a byte."""
+    lib = _native_bits()
+    if lib is not None and codes.size:
+        import ctypes
+
+        from .. import native_backend as nb
+
+        c = np.ascontiguousarray(codes.astype(np.uint16, copy=False))
+        b = np.ascontiguousarray(nbits.astype(np.uint8, copy=False))
+        cap = int(b.astype(np.int64).sum()) // 8 + 16
+        out = np.empty(cap, np.uint8)
+        m = int(nb.call(
+            "vbz_bits_pack_backward", c.ctypes.data_as(ctypes.c_void_p),
+            b.ctypes.data_as(ctypes.c_void_p), c.size,
+            out.ctypes.data_as(ctypes.c_void_p), cap))
+        if m <= 0:
+            raise RuntimeError("bit packer overflow")
+        return out[:m].tobytes()
     codes = codes[::-1].astype(np.uint64)
     nb = nbits[::-1].astype(np.int64)
     offs = np.concatenate([[0], np.cumsum(nb)])

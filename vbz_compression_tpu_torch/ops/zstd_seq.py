@@ -15,13 +15,17 @@ verified candidate positions); ``matcher="device"`` takes the candidates
 from the bounded-offset scan of :mod:`.zstd_match` instead (kernel M on a
 CUDA device).
 
-The port's copy of ``vbz_compression_tpu.ops.zstd_seq`` without its native
-branches (``_native_lz``, ``_ctable_c``, ``_seq_bitstream_native`` and the
-``lib`` paths of ``build_match_index``, ``find_sequences``,
-``encode_sequences`` and ``compress_frame``): the NumPy paths, which give
-the same frames as the native ones (``tests/test_zstd_seq.py::
-test_native_encoder_parity``). The greedy assembler, the table-mode choice
-and the block assembly are the original's line for line;
+The port's copy of ``vbz_compression_tpu.ops.zstd_seq``, native branches
+included. Where ``libvbz_native.so`` builds (:mod:`..native_backend`),
+``_native_lz`` returns it and the C code takes over: the hash index
+(``vbz_lz_match_index``), the greedy scan (``vbz_lz_sequences``, also over
+the device matcher's candidates), the sequences' FSE bitstream
+(``vbz_zstd_seq_bitstream``) and, for the host matcher, the whole frame
+(``vbz_own_zstd_frame``); each call is counted in
+``native_backend.CALLS``. Else, or with ``_native_lz`` patched to return
+None, the NumPy paths here run, which give the same frames
+(``tests/test_torch_native.py``). The greedy assembler, the table-mode
+choice and the block assembly are the original's line for line;
 ``tests/test_torch_zstd.py`` holds the frames to the original's.
 """
 
@@ -72,6 +76,19 @@ MIN_MATCH = 4
 HASH_BITS = 17
 
 
+def _native_lz():
+    """The native matcher (vbz_native.cpp vbz_lz_*) when the lib is built;
+    None otherwise. Same hash/chain/greedy semantics at C speed — the
+    NumPy lexsort index alone was 61% of the encoder's time."""
+    try:
+        from .. import native_backend as nb
+
+        lib = nb.lib()
+        return lib if hasattr(lib, "vbz_lz_match_index") else None
+    except Exception:
+        return None
+
+
 def build_match_index(buf: np.ndarray):
     """For every position i: the most recent previous position with the same
     4-byte hash (-1 if none), plus the 4-byte window values for verification.
@@ -79,6 +96,22 @@ def build_match_index(buf: np.ndarray):
     n = buf.size
     if n < MIN_MATCH:
         return np.zeros(0, np.int64), np.zeros(0, np.uint32)
+    lib = _native_lz()
+    if lib is not None:
+        import ctypes
+
+        from .. import native_backend as nb
+
+        src = np.ascontiguousarray(buf)
+        prev32 = np.empty(n - 3, np.int32)
+        m = nb.call("vbz_lz_match_index",
+                    src.ctypes.data_as(ctypes.c_void_p), n,
+                    prev32.ctypes.data_as(ctypes.c_void_p))
+        if m != n - 3:
+            raise RuntimeError(f"vbz_lz_match_index gave {m} of {n - 3}")
+        # The native greedy scan re-verifies windows from buf itself; v4
+        # is only needed by the NumPy scan path, so don't build it.
+        return prev32, None
     b = buf.astype(np.uint32)
     v4 = b[:-3] | (b[1:-2] << 8) | (b[2:-1] << 16) | (b[3:] << 24)
     h = ((v4 * np.uint32(2654435761)) >> np.uint32(32 - HASH_BITS))
@@ -111,6 +144,33 @@ def find_sequences(buf: np.ndarray, bstart: int, bend: int,
     concatenated literal bytes (incl. the trailing run)."""
     if prev.size == 0:
         return [], buf[bstart:bend]
+    lib = _native_lz()
+    if lib is not None:
+        import ctypes
+
+        from .. import native_backend as nb
+
+        src = np.ascontiguousarray(buf)
+        prev32 = np.ascontiguousarray(prev.astype(np.int32, copy=False))
+        cap = (bend - bstart) // MIN_MATCH + 1
+        tri = np.empty(3 * cap, np.int32)
+        cnt = int(nb.call(
+            "vbz_lz_sequences", src.ctypes.data_as(ctypes.c_void_p),
+            buf.size, bstart, bend, prev32.ctypes.data_as(ctypes.c_void_p),
+            tri.ctypes.data_as(ctypes.c_void_p)))
+        tri = tri[:3 * cnt].reshape(-1, 3)
+        if cnt == 0:
+            return tri, buf[bstart:bend]
+        # Vectorized literal gather: seq k's literals span
+        # [start_k, start_k + ll_k) with start_k = bstart + cum(ll+ml).
+        ll = tri[:, 0].astype(np.int64)
+        ml = tri[:, 2].astype(np.int64)
+        adv = np.cumsum(ll + ml)
+        starts = bstart + np.concatenate([[0], adv[:-1]])
+        pre_ll = np.concatenate([[0], np.cumsum(ll)[:-1]])
+        idx = np.repeat(starts - pre_ll, ll) + np.arange(int(ll.sum()))
+        lits = np.concatenate([buf[idx], buf[bstart + int(adv[-1]):bend]])
+        return tri, lits
     hi = min(bend - MIN_MATCH, prev.size - 1)
     cand = np.nonzero((prev[bstart:hi + 1] >= 0)
                       & (v4[np.maximum(prev[bstart:hi + 1], 0)]
@@ -148,6 +208,59 @@ def _nb_seq_header(n: int) -> bytes:
     return bytes([0xFF]) + int(n - 0x7F00).to_bytes(2, "little")
 
 
+def _ctable_c(ct):
+    """ctypes view of an fse.CTable (int32-narrowed arrays cached on the
+    table object — they must stay alive for the call's duration)."""
+    import ctypes
+
+    from .. import native_backend as nb
+
+    if ct is None:
+        return None, None
+    c32 = getattr(ct, "_c32", None)
+    if c32 is None:
+        c32 = (np.ascontiguousarray(ct.state_table.astype(np.int32)),
+               np.ascontiguousarray(ct.delta_nb_bits.astype(np.int32)),
+               np.ascontiguousarray(ct.delta_find_state.astype(np.int32)))
+        ct._c32 = c32
+    st, dnb, dfs = c32
+    rec = nb._CFseTable(
+        st.ctypes.data_as(ctypes.c_void_p).value,
+        dnb.ctypes.data_as(ctypes.c_void_p).value,
+        dfs.ctypes.data_as(ctypes.c_void_p).value,
+        int(ct.accuracy_log))
+    return ctypes.pointer(rec), rec
+
+
+def _seq_bitstream_native(n, llc, ll_extra, ll_bits, ofc, of_extra, of_bits,
+                          mlc, ml_extra, ml_bits, ll_ct, of_ct,
+                          ml_ct) -> bytes:
+    """The interleaved FSE bitstream via vbz_zstd_seq_bitstream (identical
+    bytes to the Python BitWriter walk — asserted by the parity tests)."""
+    import ctypes
+
+    from .. import native_backend as nb
+
+    def c32(a):
+        return np.ascontiguousarray(a.astype(np.int32, copy=False))
+
+    arrs = [c32(a) for a in (llc, ll_extra, ll_bits, ofc, of_extra,
+                             of_bits, mlc, ml_extra, ml_bits)]
+    # Per-seq worst case: 3 state pushes (<= 9 bits each) + extras
+    # (<= 16 + 16 + 31 bits) < 12 bytes, plus flush/sentinel slack.
+    cap = 12 * n + 16
+    outb = np.empty(cap, np.uint8)
+    ptrs = [_ctable_c(ct) for ct in (ll_ct, of_ct, ml_ct)]
+    m = int(nb.call(
+        "vbz_zstd_seq_bitstream",
+        n, *[a.ctypes.data_as(ctypes.c_void_p) for a in arrs],
+        ptrs[0][0], ptrs[1][0], ptrs[2][0],
+        outb.ctypes.data_as(ctypes.c_void_p), cap))
+    if m <= 0:
+        raise RuntimeError("sequence bitstream overflow")
+    return outb[:m].tobytes()
+
+
 def _channel_table(codes: np.ndarray, predef: np.ndarray, predef_log: int,
                    max_log: int):
     """Pick the cheapest table mode for one channel.
@@ -163,7 +276,7 @@ def _channel_table(codes: np.ndarray, predef: np.ndarray, predef_log: int,
     freqs = np.bincount(codes, minlength=predef.size)
 
     # Estimated cost (bits): cross-entropy vs each table's distribution.
-    # Sequential libm-log2 sums ON PURPOSE: the JAX package's native port
+    # Sequential libm-log2 sums ON PURPOSE: the native port
     # (vbz_own_zstd.cpp) replays this loop with the same IEEE double ops,
     # so both sides make the SAME table-mode decision bit for bit (numpy's
     # pairwise summation / SIMD log2 could differ in the last ulp).
@@ -236,6 +349,13 @@ def encode_sequences(seqs) -> bytes:
         out[3] = of_desc
     if ml_mode == 1:
         out[4] = ml_desc
+
+    lib = _native_lz()
+    if lib is not None and hasattr(lib, "vbz_zstd_seq_bitstream"):
+        out.append(_seq_bitstream_native(
+            n, llc, ll_extra, ll_bits, ofc, of_extra, of_bits,
+            mlc, ml_extra, ml_bits, ll_ct, of_ct, ml_ct))
+        return b"".join(out)
 
     bw = fse.BitWriter()
     ll_st = fse.EncState(ll_ct) if ll_ct is not None else None
@@ -316,10 +436,33 @@ def compress_frame(data: bytes, matcher: str = "host",
         out.append((1 | (0 << 1) | (0 << 3)).to_bytes(3, "little"))
         return b"".join(out)
 
+    if matcher == "host":
+        # Complete native frame encoder (vbz_own_zstd.cpp): byte-identical
+        # frames at C speed; the NumPy path below is the parity oracle
+        # (tests/test_torch_native.py).
+        lib = _native_lz()
+        if lib is not None and hasattr(lib, "vbz_own_zstd_frame"):
+            import ctypes
+
+            from .. import native_backend as nb
+
+            src = np.ascontiguousarray(buf)
+            cap = n + n // 8 + 256
+            out_buf = np.empty(cap, np.uint8)
+            m = int(nb.call(
+                "vbz_own_zstd_frame", src.ctypes.data_as(ctypes.c_void_p), n,
+                out_buf.ctypes.data_as(ctypes.c_void_p), cap))
+            if m > 0:
+                return out_buf[:m].tobytes()
+            # m <= 0: capacity/invariant breach — fall through to NumPy.
     if matcher == "device":
         from . import zstd_match
 
         prev, v4 = zstd_match.build_match_index_device(buf, device=device)
+        if _native_lz() is not None and prev.size < 2**31:
+            # The type the native greedy scan takes, narrowed once here
+            # rather than on every block (find_sequences).
+            prev = prev.astype(np.int32)
     else:
         prev, v4 = build_match_index(buf)
     pos = 0

@@ -46,12 +46,14 @@ def rank_world(group=None) -> tuple[int, int]:
 
 def rank_device(group=None, device=None) -> torch.device:
     """The device of this process's rows: ``device`` when the caller names
-    one, else the api's default (the CPU under ``VBZ_BACKEND=torch``), where
-    a card is ``cuda:<rank % device_count>``. Raises without a card and
-    without either request, as :func:`..api.default_backend` does."""
+    one, else the api's default (the CPU under ``VBZ_BACKEND=torch``; the
+    card under ``VBZ_BACKEND=native``, a host codec, as
+    :func:`..api.scan_device` gives it), where a card is
+    ``cuda:<rank % device_count>``. Raises without a card and without
+    either request, as :func:`..api.default_backend` does."""
     if device is not None:
         return torch.device(device)
-    dev = api.default_backend().device
+    dev = api.scan_device()
     if dev.type == "cuda":
         dev = torch.device("cuda",
                            rank_world(group)[0] % torch.cuda.device_count())

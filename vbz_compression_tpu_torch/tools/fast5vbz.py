@@ -8,10 +8,12 @@ needed), or back to gzip with ``-d``. vbz inputs are decoded from their raw
 chunks by the port's codec, so reading them needs no plugin either.
 
     python -m vbz_compression_tpu_torch.tools.fast5vbz IN.fast5 OUT.fast5 \\
-        [-d] [--vbz-version 0|1] [--zstd-level L] [--backend auto|torch|oracle]
+        [-d] [--vbz-version 0|1] [--zstd-level L] \\
+        [--backend auto|torch|oracle|native]
 
 ``--backend auto`` runs the card's kernels (E to encode, D to decode),
-``torch`` their plain versions on the CPU, ``oracle`` the NumPy codec.
+``torch`` their plain versions on the CPU, ``oracle`` the NumPy codec,
+``native`` the native C++ codec (``native_backend``, built at first use).
 """
 
 from __future__ import annotations
@@ -106,6 +108,10 @@ def backend_of(choice: str):
         from ..models.codec import TorchSvbBackend
 
         return TorchSvbBackend("cpu")
+    if choice == "native":
+        from ..native_backend import native_backend
+
+        return native_backend
     from ..ops import scalar
 
     return scalar
@@ -121,11 +127,13 @@ def main(argv=None) -> int:
                         help="re-encode signals as gzip instead of vbz")
     parser.add_argument("--vbz-version", type=int, default=0, choices=(0, 1))
     parser.add_argument("--zstd-level", type=int, default=1)
-    parser.add_argument("--backend", choices=("auto", "torch", "oracle"),
+    parser.add_argument("--backend",
+                        choices=("auto", "torch", "oracle", "native"),
                         default="auto",
                         help="auto = the card's kernels (VBZ_BACKEND=torch: "
                              "the CPU), torch = their plain versions on the "
-                             "CPU, oracle = the NumPy codec")
+                             "CPU, oracle = the NumPy codec, native = the "
+                             "native C++ codec")
     args = parser.parse_args(argv)
     compress_fast5(args.input, args.output, decompress=args.decompress,
                    vbz_version=args.vbz_version, zstd_level=args.zstd_level,

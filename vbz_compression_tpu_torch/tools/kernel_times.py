@@ -43,7 +43,11 @@ Inputs, made from seeds with numpy:
   index's copies back through pageable memory, on the host clock;
 - own: the own-tpu zstd stage at (0,2,1,1) host to host, the clean tier as
   4 x 8 MiB chunks through the batch API and the 256 pseudo-reads through
-  ``compress_signals`` (one warm-up call, then three timed).
+  ``compress_signals`` (one warm-up call, then three timed); then one
+  frame of the clean payload with the device matcher, with the encoder's
+  native branches (where the checkout has them) and with them patched
+  off: three timed calls each, and one under cProfile, its functions by
+  time of their own (shares, not times: cProfile slows Python, not C).
 For the codec inputs and each direction: one call with the L2 flushed and
 ten back to back, each the best of three (``profiling``'s ``cold_ms`` and
 ``warm_ms``), and the bound (the bytes the call must move at the data
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -327,6 +332,54 @@ def own_tpu_times() -> dict:
     return out
 
 
+def own_profile(top: int = 12) -> dict:
+    """Where one own-tpu frame's host time goes: ``zstd_seq.compress_frame``
+    on the clean tier's first chunk's payload with the device matcher on the
+    card, with the encoder's native branches (where the checkout has them)
+    and with them patched off: the best of OWN_REPEATS unprofiled calls,
+    then one call under cProfile and its ``top`` functions by time of their
+    own. cProfile adds to every Python call and to no C code, so take
+    shares from it, not times."""
+    import cProfile
+    import pstats
+
+    from vbz_compression_tpu_torch.ops import scalar, zstd_huff, zstd_seq
+
+    payload = scalar.svb_compress(signals.TIERS["clean"](B, N)[0], 2, True, 0)
+    branches = {"numpy": ((zstd_seq, "_native_lz"),
+                          (zstd_huff, "_native_bits"))}
+    if hasattr(zstd_seq, "_native_lz"):
+        branches = {"native": (), **branches}
+    else:  # a tree without the native branches runs only NumPy
+        branches["numpy"] = ()
+    out = {}
+    for branch, off in branches.items():
+        saved = [getattr(m, a) for m, a in off]
+        for m, a in off:
+            setattr(m, a, lambda: None)
+        try:
+            zstd_seq.compress_frame(payload, "device", "cuda")
+            seconds = []
+            for _ in range(OWN_REPEATS):
+                t0 = time.perf_counter()
+                zstd_seq.compress_frame(payload, "device", "cuda")
+                seconds.append(time.perf_counter() - t0)
+            prof = cProfile.Profile()
+            prof.runcall(zstd_seq.compress_frame, payload, "device", "cuda")
+        finally:
+            for (m, a), fn in zip(off, saved):
+                setattr(m, a, fn)
+        stats = pstats.Stats(prof).stats
+        rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+        out[f"own-tpu frame profile, {branch} branches"] = {
+            "bytes": len(payload), "s": seconds,
+            "profiled_s": sum(v[2] for v in stats.values()),
+            "top": [{"function": f"{os.path.basename(f)}:{line}({name})",
+                     "calls": nc, "own_s": tt, "cum_s": ct}
+                    for (f, line, name), (_cc, nc, tt, ct, _c) in rows]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON result here")
@@ -410,6 +463,14 @@ def main() -> int:
             times[label] = t
             print(f"  {label}: {min(t['s']):.3f}-{max(t['s']):.3f} s host to "
                   f"host, {t['bytes'] / min(t['s']) / 1e9:.4f} GB/s at best")
+        for label, t in own_profile().items():
+            times[label] = t
+            print(f"  {label} [{t['bytes']}]: {min(t['s']):.3f}-"
+                  f"{max(t['s']):.3f} s unprofiled; under cProfile "
+                  f"{t['profiled_s']:.3f} s, by time of its own:")
+            for r in t["top"]:
+                print(f"    {r['own_s']:7.3f} s own {r['cum_s']:7.3f} s cum "
+                      f"{r['calls']:6d} calls  {r['function']}")
     text = json.dumps({"card": smi, "times": times})
     print(text)
     if args.out:
