@@ -53,15 +53,16 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      L2 flushed and back to back, beside its plain version, its one-call
      PyTorch equivalent where there is one, and its bound;
   7. the bench path: vbz_compression_tpu_torch.bench on the four tiers (one
-     pass), the copy bandwidth and the pipeline line; E, D and CP must have
+     pass), the copy bandwidth, the pipeline line (zstd level 1 through the
+     api's zstd stage) and the own encoder's line; E, D and CP must have
      launched (counts set to 0 just before and read just after);
   8. the probe path: vbz_compression_tpu_torch.tools.capability_probe, every
      case OK; every probe kernel, CP and kernel M at both widths (the int32
      offsets and the uint8 index, on signals.match_cases) must have
      launched;
   9. the corpus paths, on the 256 pseudo-reads (signals.pseudo_reads) at zstd
-     level 0 (level 1 needs the zstandard package; the driver's default is
-     level 1): (a) parallel.multihost.compress_signals at cd_values
+     level 0 (phase 12 runs them at level 1, compress_signals' default):
+     (a) parallel.multihost.compress_signals at cd_values
      (0,2,1,0) and (0,2,0,0), one encode launch per bucket (E, then E4),
      every frame equal to the oracle's and every read round-tripped through
      the batch API on the card; (b) the data-parallel plane
@@ -112,7 +113,26 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      vbz_compress_sized / vbz_decompress_sized at (0,2,1,1) on the 64-read
      corpus, round trip; (f) the fast5 reader: which libhdf5 it found, or
      that none was (it reads no file here: no fast5 file can be written
-     without h5py).
+     without h5py);
+ 12. the main path at zstd level 1, through the api's zstd stage (libzstd
+     through the zstandard package where it imports, else libzstd.so.1
+     through ctypes, utils/libzstd.py; a machine with neither fails the
+     run): (a) the route, which must be libzstd.so.1 wherever zstandard
+     cannot be imported; (b) each option set of MAIN_PATHS with its level
+     set to 1 on phase 4's corpus through the batch API on the card, every
+     frame the oracle backend's on the CPU (one process, one route), every
+     read round-tripped, the pair's kernels launched and libzstd called
+     (ZSTD_compress2 once a frame; counts set to 0 just before each path
+     and read just after), timed host to host; the (0,2,1,1) frames also
+     decoded through the native C ABI; (c) api.compress / decompress on
+     default options for one read of each corpus dtype, and
+     vbz_compress_sized / vbz_decompress_sized on single reads at
+     (0,2,1,1); (d) compress_signals on the pseudo-reads at its defaults
+     (level 1), frames the oracle's, and phase 9's two-process run at
+     --zstd-level 1, each .vbz file the oracle's frames, both processes on
+     the same route; (e) times: the batch API at (0,2,1,1) split into the
+     StreamVByte stage and the zstd stage each way, compress_signals at
+     levels 0 and 1 in turns, the bench's pipeline line at levels 1 and 0.
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is {"ok": true, "device": {...}}.
 """
@@ -211,7 +231,7 @@ class Port:
         from vbz_compression_tpu_torch.parallel import multihost, sharded
         from vbz_compression_tpu_torch.tools import (capability_probe,
                                                      kernel_times)
-        from vbz_compression_tpu_torch.utils import (_native_build,
+        from vbz_compression_tpu_torch.utils import (_native_build, libzstd,
                                                      native_fast5, profiling,
                                                      roofline)
 
@@ -223,7 +243,7 @@ class Port:
         self.match, self.zstd_seq, self.zstd_huff = (zstd_match, zstd_seq,
                                                      zstd_huff)
         self.native, self.native_build = native_backend, _native_build
-        self.native_fast5 = native_fast5
+        self.native_fast5, self.libzstd = native_fast5, libzstd
         self.mods = {"w2": svb_w2, "w4": svb_w4, "v1": svb_v1}
         self.fns = {
             "w2": (svb_w2.encode_w2_rows, svb_w2.encode_w2_rows_plain,
@@ -813,19 +833,25 @@ SMOKE_FILES = 2            # in-memory files of the two-process run
 SMOKE_TIMEOUT = 300        # seconds each smoke process may take
 
 
-def corpus_driver(port: Port, reads, cd_values, pair: str):
+def corpus_driver(port: Port, reads, cd_values, pair: str,
+                  defaults: bool = False):
     """(a) compress_signals on the card: one encode launch per bucket, every
-    frame the oracle's, every read round-tripped through the batch API on
-    the card. Returns (run, the oracle's frames)."""
+    frame the oracle's at ``cd_values``, every read round-tripped through
+    the batch API on the card; with ``defaults``, compress_signals is given
+    no options (its default is (0,2,1,1)). Returns (run, the oracle's
+    frames)."""
     api, torch, pkg = port.api, port.torch, port.pkg
     opts = pkg.CompressionOptions.from_cd_values(cd_values)
     buckets = len({port.multihost.bucket_of(r.size) for r in reads})
     e_name, d_name = PAIRS[pair][0]
     torch.cuda.synchronize()
     port.zero_counts()
+    zero_zstd_calls(port)
     t0 = time.perf_counter()
-    frames = port.multihost.compress_signals(reads, opts)
+    frames = port.multihost.compress_signals(reads, None if defaults
+                                             else opts)
     secs = time.perf_counter() - t0
+    zstd_calls = port.libzstd.CALLS["ZSTD_compress2"]
     encodes = port.counts()[e_name]
     back = api.vbz_decompress_sized_batch(frames, opts)
     launches = port.counts()
@@ -844,15 +870,19 @@ def corpus_driver(port: Port, reads, cd_values, pair: str):
             raise SystemExit(f"corpus driver {cd_values} read {i}: round "
                              "trip differs")
     raw = sum(r.nbytes for r in reads)
-    run = {"path": f"corpus driver {cd_values}", "reads": len(reads),
+    what = "its defaults, " if defaults else ""
+    run = {"path": f"corpus driver {what}{cd_values}", "reads": len(reads),
            "bytes": raw, "frame_bytes": sum(map(len, frames)),
            "buckets": buckets, "encode_launches": encodes,
+           "libzstd_compress_calls": zstd_calls,
            "launches": {k: v for k, v in launches.items() if v},
            "host_to_host_s": secs}
-    print(f"  compress_signals {cd_values}: {len(reads)} reads, {raw} bytes "
-          f"-> {run['frame_bytes']} framed in {buckets} buckets, {encodes} "
-          f"{e_name} launches; every frame equals the oracle's, every read "
-          f"round-trips on the card; {secs:.3f} s host to host (one call)")
+    print(f"  compress_signals at {what}{cd_values}: {len(reads)} reads, "
+          f"{raw} bytes -> {run['frame_bytes']} framed in {buckets} "
+          f"buckets, {encodes} {e_name} launches, {zstd_calls} "
+          "ZSTD_compress2 calls through libzstd.so.1; every frame equals the "
+          f"oracle's, every read round-trips on the card; {secs:.3f} s host "
+          "to host (one call)")
     return run, want
 
 
@@ -921,9 +951,10 @@ def plane_world1(port: Port, reads) -> dict:
             "all_gather_host_ms": gather_ms}
 
 
-def two_process_run(port: Port, n_reads: int, frames: list) -> dict:
+def two_process_run(port: Port, n_reads: int, frames: list,
+                    level: int = 0) -> dict:
     """(c) two multihost_smoke processes on the one card, gloo between them,
-    over the pseudo-reads in SMOKE_FILES in-memory files at (0,2,1,0):
+    over the pseudo-reads in SMOKE_FILES in-memory files at (0,2,1,level):
     identical global stats, each .vbz file the oracle's ``frames`` (one per
     read, in read order) of that file's reads."""
     import subprocess
@@ -935,7 +966,7 @@ def two_process_run(port: Port, n_reads: int, frames: list) -> dict:
                "vbz_compression_tpu_torch.tools.multihost_smoke",
                "file://" + os.path.join(tmp, "rendezvous"), "2", "RANK", tmp,
                "--backend", "gloo", "--pseudo-reads", str(n_reads),
-               "--files", str(SMOKE_FILES), "--zstd-level", "0"]
+               "--files", str(SMOKE_FILES), "--zstd-level", str(level)]
         t0 = time.perf_counter()
         procs = [subprocess.Popen([str(r) if a == "RANK" else a for a in cmd],
                                   cwd=root, stdout=subprocess.PIPE,
@@ -977,13 +1008,18 @@ def two_process_run(port: Port, n_reads: int, frames: list) -> dict:
     for o in outs:
         for k, v in o["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    print(f"  two processes on one card (gloo): identical stats {stats[0]}; "
-          f"both .vbz files equal the oracle's frames; launches {launches}; "
-          f"{wall:.2f} s wall from start to both exits, ranks "
-          f"{[round(o['seconds'], 3) for o in outs]} s in compress_corpus")
-    return {"path": "two-process corpus run", "launches": launches,
-            "stats": stats[0], "wall_s": wall,
-            "rank_s": [o["seconds"] for o in outs]}
+    routes = sorted({str(o["zstd_route"]) for o in outs})
+    zstd_calls = sum(o["libzstd_compress_calls"] for o in outs)
+    print(f"  two processes on one card (gloo), zstd level {level}: "
+          f"identical stats {stats[0]}; both .vbz files equal the oracle's "
+          f"frames; launches {launches}; zstd route {routes}, "
+          f"ZSTD_compress2 calls {zstd_calls}; {wall:.2f} s wall from start "
+          f"to both exits, ranks {[round(o['seconds'], 3) for o in outs]} s "
+          "in compress_corpus")
+    return {"path": f"two-process corpus run, zstd level {level}",
+            "launches": launches, "stats": stats[0], "wall_s": wall,
+            "rank_s": [o["seconds"] for o in outs], "zstd_routes": routes,
+            "libzstd_compress_calls": zstd_calls}
 
 
 # ---------------------------------------------------------------------------
@@ -1401,6 +1437,269 @@ def native_runtime(port: Port, built: dict, chunks: list, frames: list,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the main path at zstd level 1
+# ---------------------------------------------------------------------------
+
+FAST5_OPTIONS = (0, 2, 1, 1)  # the fast5 filter's default: E/D, then level 1
+SINGLE_READS = 4              # reads of the corpus through the sized calls
+
+
+def _level1(cd_values) -> tuple:
+    return (*cd_values[:3], 1)
+
+
+def zero_zstd_calls(port: Port) -> None:
+    for key in port.libzstd.CALLS:
+        port.libzstd.CALLS[key] = 0
+
+
+def zstd_stage_route(port: Port) -> dict:
+    """(a) The library the api's zstd stage calls: libzstd.so.1 through
+    ctypes wherever the zstandard package cannot be imported. A missing
+    library ends the run."""
+    import importlib.util
+
+    installed = importlib.util.find_spec("zstandard") is not None
+    try:
+        route = port.api.zstd_route()
+    except OSError as exc:
+        raise SystemExit(f"the api's zstd stage finds no libzstd: {exc}")
+    ctypes_route = route.startswith("libzstd.so")
+    print(f"  zstd route: {route}; zstandard "
+          f"{'installed' if installed else 'not installed'}; the pool takes "
+          f"up to {os.cpu_count()} threads")
+    if not installed and not ctypes_route:
+        raise SystemExit(f"zstandard is missing, yet the route is {route!r}")
+    return {"route": route, "zstandard_installed": installed,
+            "ctypes": ctypes_route, "pool_threads": os.cpu_count()}
+
+
+def _require_zstd_calls(what: str, route: dict, calls: dict,
+                        compressed: int) -> None:
+    """On the ctypes route: one ZSTD_compress2 per frame and some
+    ZSTD_decompress calls (a frame of content size 0 needs none)."""
+    if route["ctypes"] and (calls.get("ZSTD_compress2") != compressed
+                            or not calls.get("ZSTD_decompress")):
+        raise SystemExit(f"{what}: libzstd calls {calls}, want "
+                         f"{compressed} ZSTD_compress2 and some "
+                         "ZSTD_decompress")
+
+
+def level1_path(port: Port, route: dict, reads, cd_values,
+                pair: str) -> tuple[dict, list]:
+    """(b) One option set at level 1 through the batch API on the card:
+    every frame the oracle backend's (the same route, on the CPU), every
+    read round-tripped, the pair's kernels launched and libzstd called
+    (counts set to 0 just before the path and read just after); times host
+    to host, best of REPEATS. Returns (run, frames)."""
+    api, torch = port.api, port.torch
+    opts = port.pkg.CompressionOptions.from_cd_values(cd_values)
+    torch.cuda.synchronize()
+    port.zero_counts()
+    zero_zstd_calls(port)
+    frames = api.vbz_compress_sized_batch(reads, opts)
+    back = api.vbz_decompress_sized_batch(frames, opts)
+    launches = port.counts()
+    calls = {k: v for k, v in port.libzstd.CALLS.items() if v}
+    what = f"level-1 path {cd_values}"
+    port.require_launched(what, launches, PAIRS[pair][0])
+    _require_zstd_calls(what, route, calls, len(reads))
+    if frames != api.vbz_compress_sized_batch(reads, opts,
+                                              backend=port.pkg.oracle):
+        raise SystemExit(f"{what}: frames differ from the oracle backend's")
+    for i, (r, b) in enumerate(zip(reads, back)):
+        if not np.array_equal(np.frombuffer(b, r.dtype), r):
+            raise SystemExit(f"{what} read {i}: round trip differs")
+    enc_s = dec_s = float("inf")
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        api.vbz_compress_sized_batch(reads, opts)
+        t1 = time.perf_counter()
+        api.vbz_decompress_sized_batch(frames, opts)
+        t2 = time.perf_counter()
+        enc_s, dec_s = min(enc_s, t1 - t0), min(dec_s, t2 - t1)
+    raw = sum(r.nbytes for r in reads)
+    run = {"path": what, "content": str(reads[0].dtype), "pair": pair,
+           "reads": len(reads), "bytes": raw,
+           "frame_bytes": sum(map(len, frames)),
+           "launches": {k: v for k, v in launches.items() if v},
+           "libzstd_calls": calls, "enc_s": enc_s, "dec_s": dec_s,
+           "enc_gb_s": raw / enc_s / 1e9, "dec_gb_s": raw / dec_s / 1e9}
+    print(f"  {cd_values} ({run['content']}): {len(reads)} reads, {raw} bytes "
+          f"-> {run['frame_bytes']} framed; every frame equals the oracle "
+          f"backend's, every read round-trips; launches {run['launches']}; "
+          f"libzstd calls {calls}; host to host encode "
+          f"{run['enc_gb_s']:.3f} GB/s, decode {run['dec_gb_s']:.3f} GB/s "
+          f"(best of {REPEATS})")
+    return run, frames
+
+
+def native_decode(port: Port, reads, frames) -> dict:
+    """The FAST5_OPTIONS frames through the native C ABI (libzstd in C, an
+    independent reader of the tuned frames): every read back."""
+    opts = port.pkg.CompressionOptions.from_cd_values(FAST5_OPTIONS)
+    before = dict(port.native.CALLS)
+    t0 = time.perf_counter()
+    for i, (r, f) in enumerate(zip(reads, frames)):
+        if port.native.vbz_decompress_sized(f, opts) != r.tobytes():
+            raise SystemExit(f"native C ABI: level-1 frame {i} does not "
+                             "decode to its read")
+    secs = time.perf_counter() - t0
+    moved = _native_moved(port, before)
+    if moved.get("vbz_decompress_sized") != len(frames):
+        raise SystemExit(f"native C ABI decode: calls {moved}")
+    print(f"  {FAST5_OPTIONS} frames through the native C ABI: all "
+          f"{len(frames)} decode to their reads; {secs:.4f} s host to host "
+          "(one thread, one pass)")
+    return {"frames": len(frames), "s": secs}
+
+
+def stage_split(port: Port, reads, frames) -> dict:
+    """(e) The batch API at FAST5_OPTIONS split into its stages, each
+    direction, best of REPEATS, host to host: the StreamVByte stage (the
+    CUDA backend's batch call: copies, E or D) and the zstd stage (content
+    sizes and the pool), as the api runs them."""
+    api = port.api
+    opts = port.pkg.CompressionOptions.from_cd_values(FAST5_OPTIONS)
+    backend = port.codec.TorchSvbBackend(DEVICE)
+    args = (opts.integer_size, opts.perform_delta_zig_zag, opts.vbz_version)
+    level = opts.zstd_compression_level
+    raws = [r.tobytes() for r in reads]
+    bodies = [f[4:] for f in frames]
+    counts = [r.size for r in reads]
+    best = dict.fromkeys(("svb_enc_s", "zstd_enc_s", "zstd_dec_s",
+                          "svb_dec_s"), float("inf"))
+
+    def unzstd(bodies):
+        sizes = [api.zstd_frame_content_size(b) for b in bodies]
+        return api._map_zstd(lambda bs: api.zstd_decompress(*bs),
+                             list(zip(bodies, sizes)))
+
+    for _ in range(REPEATS):
+        port.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payloads = [bytes(x) for x in backend.svb_compress_batch(raws,
+                                                                 *args)]
+        t1 = time.perf_counter()
+        zstd = api._map_zstd(lambda x: api.zstd_compress(x, level), payloads)
+        t2 = time.perf_counter()
+        contents = unzstd(bodies)
+        t3 = time.perf_counter()
+        outs = backend.svb_decompress_batch(contents, counts, *args)
+        t4 = time.perf_counter()
+        for key, dt in (("svb_enc_s", t1 - t0), ("zstd_enc_s", t2 - t1),
+                        ("zstd_dec_s", t3 - t2), ("svb_dec_s", t4 - t3)):
+            best[key] = min(best[key], dt)
+    if zstd != bodies or contents != payloads or any(
+            np.ascontiguousarray(o).tobytes() != r
+            for o, r in zip(outs, raws)):
+        raise SystemExit("stage split: the stages do not give the batch "
+                         "API's frames and reads")
+    raw = sum(map(len, raws))
+    out = dict(best, bytes=raw, payload_bytes=sum(map(len, payloads)),
+               frame_bytes=sum(map(len, frames)))
+    for key in best:
+        out[key.replace("_s", "_gb_s")] = raw / best[key] / 1e9
+    print(f"  {FAST5_OPTIONS} split, {len(reads)} reads, best of {REPEATS}: "
+          f"encode StreamVByte {best['svb_enc_s']:.4f} s + zstd "
+          f"{best['zstd_enc_s']:.4f} s; decode zstd {best['zstd_dec_s']:.4f} "
+          f"s + StreamVByte {best['svb_dec_s']:.4f} s "
+          f"({out['payload_bytes']} payload bytes)")
+    return out
+
+
+def level1_entry_points(port: Port, route: dict, by_dtype: dict, reads16,
+                        frames16) -> dict:
+    """(c) api.compress / decompress on default options (level 1, the
+    dtype's flavor) for one read of each corpus dtype, each frame the
+    oracle backend's; vbz_compress_sized / vbz_decompress_sized on single
+    reads at FAST5_OPTIONS, each frame the batch API's."""
+    api, torch, oracle = port.api, port.torch, port.pkg.oracle
+    opts = port.pkg.CompressionOptions.from_cd_values(FAST5_OPTIONS)
+    single = range(0, len(reads16), len(reads16) // SINGLE_READS)
+    torch.cuda.synchronize()
+    port.zero_counts()
+    zero_zstd_calls(port)
+    for name, r in by_dtype.items():
+        f = api.compress(r)
+        if not np.array_equal(api.decompress(f, r.dtype), r):
+            raise SystemExit(f"api.compress/decompress ({name}): round trip "
+                             "differs")
+        if f.tobytes() != api.compress(r, backend=oracle).tobytes():
+            raise SystemExit(f"api.compress ({name}): frame differs from the "
+                             "oracle backend's")
+    for i in single:
+        f = api.vbz_compress_sized(reads16[i], opts)
+        if f != frames16[i]:
+            raise SystemExit(f"vbz_compress_sized read {i}: frame differs "
+                             "from the batch API's")
+        if api.vbz_decompress_sized(f, opts) != reads16[i].tobytes():
+            raise SystemExit(f"vbz_decompress_sized read {i}: round trip "
+                             "differs")
+    launches = port.counts()
+    calls = {k: v for k, v in port.libzstd.CALLS.items() if v}
+    what = "api.compress and the sized calls at level 1"
+    port.require_launched(what, launches, ("w2_encode", "w2_decode",
+                                           "w4_encode", "w4_decode"))
+    # Each api.compress runs twice (card, oracle), each sized call once.
+    _require_zstd_calls(what, route, calls, 2 * len(by_dtype) + len(single))
+    run = {"path": what, "dtypes": sorted(by_dtype),
+           "single_reads": list(single),
+           "launches": {k: v for k, v in launches.items() if v},
+           "libzstd_calls": calls}
+    print(f"  api.compress / decompress on default options, one read each of "
+          f"{run['dtypes']}: frames the oracle backend's, arrays back; "
+          f"vbz_compress_sized / vbz_decompress_sized at {FAST5_OPTIONS} on "
+          f"reads {run['single_reads']}: the batch API's frames, reads back; "
+          f"launches {run['launches']}; libzstd calls {calls}")
+    return run
+
+
+def corpus_level_times(port: Port, pseudo) -> dict:
+    """(e) compress_signals on the pseudo-reads at (0,2,1,0) and at its
+    defaults (level 1), in turns, best of REPEATS, host to host."""
+    opts0 = port.pkg.CompressionOptions.from_cd_values((0, 2, 1, 0))
+    best = {0: float("inf"), 1: float("inf")}
+    for _ in range(REPEATS):
+        for level, opts in ((0, opts0), (1, None)):
+            port.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            port.multihost.compress_signals(pseudo, opts)
+            best[level] = min(best[level], time.perf_counter() - t0)
+    raw = sum(r.nbytes for r in pseudo)
+    print(f"  compress_signals on {len(pseudo)} reads, in turns, best of "
+          f"{REPEATS}: level 0 {best[0]:.4f} s ({raw / best[0] / 1e9:.3f} "
+          f"GB/s), level 1 {best[1]:.4f} s ({raw / best[1] / 1e9:.3f} GB/s)")
+    return {"bytes": raw, "level0_s": best[0], "level1_s": best[1]}
+
+
+def pipeline_levels(port: Port, route: dict, clean, bench_lines) -> dict:
+    """(e) The bench's pipeline line at level 1 and at level 0, from the
+    bench's own function; phase 7's line must be level 1 on this route."""
+    bench = port.bench
+    first = bench_lines[0]
+    if first["zstd_level"] != 1 or first["zstd_route"] != route["route"]:
+        raise SystemExit(f"the bench's pipeline line ran at level "
+                         f"{first['zstd_level']} through "
+                         f"{first['zstd_route']}, not level 1 through "
+                         f"{route['route']}")
+    torch = port.torch
+    torch.cuda.synchronize()
+    port.zero_counts()
+    lines = {level: bench.pipeline_line(bench.pipeline_gbps(
+        clean, port.codec.TorchSvbBackend(DEVICE), level))
+        for level in (1, 0)}
+    launches = port.counts()
+    port.require_launched("the bench's pipeline", launches,
+                          ("w2_encode", "w2_decode"))
+    for line in lines.values():
+        print("  " + json.dumps(line))
+    return {"path": "the bench's pipeline at levels 1 and 0",
+            "launches": {k: v for k, v in launches.items() if v},
+            "lines": list(lines.values())}
+
+
 def main() -> int:
     import torch
 
@@ -1533,6 +1832,45 @@ def main() -> int:
                             pseudo, own_corpus, reads16, native_oracle_frames)
     runs += native.pop("runs")
     lap("11 native host runtime")
+
+    # Phase 12: the main path at zstd level 1.
+    print("main path at zstd level 1:")
+    route = zstd_stage_route(port)
+    level1 = {"route": route}
+    by_dtype = {}
+    for cd_values, content, pair in MAIN_PATHS:
+        reads = reads16 if content == "int16" else sig.corpus_of(content,
+                                                                 lengths)
+        run, frames = level1_path(port, route, reads, _level1(cd_values),
+                                  pair)
+        runs.append(run)
+        by_dtype.setdefault(str(reads[0].dtype), reads[len(reads) // 2])
+        if _level1(cd_values) == FAST5_OPTIONS:
+            frames16 = frames
+            level1["native_c_abi"] = native_decode(port, reads, frames)
+            level1["split"] = stage_split(port, reads, frames)
+        del reads, frames
+    runs.append(level1_entry_points(port, route, by_dtype, reads16,
+                                    frames16))
+    run, want = corpus_driver(port, pseudo, FAST5_OPTIONS, "w2",
+                              defaults=True)
+    if route["ctypes"] and run["libzstd_compress_calls"] != len(pseudo):
+        raise SystemExit(f"compress_signals at its defaults: "
+                         f"{run['libzstd_compress_calls']} ZSTD_compress2 "
+                         f"calls for {len(pseudo)} reads")
+    runs.append(run)
+    run = two_process_run(port, len(pseudo), want, level=1)
+    if route["ctypes"] and (run["zstd_routes"] != [route["route"]]
+                            or run["libzstd_compress_calls"] != len(pseudo)):
+        raise SystemExit(f"two-process run at level 1: routes "
+                         f"{run['zstd_routes']}, ZSTD_compress2 calls "
+                         f"{run['libzstd_compress_calls']}")
+    runs.append(run)
+    level1["compress_signals"] = corpus_level_times(port, pseudo)
+    pipe = pipeline_levels(port, route, tier_rows["clean"], bench_lines)
+    level1["pipeline"] = pipe["lines"]
+    runs.append(pipe)
+    lap("12 main path at zstd level 1")
     for mod in ("jax", "vbz_compression_tpu"):
         if mod in sys.modules or any(m.startswith(mod + ".")
                                      for m in sys.modules):
@@ -1582,7 +1920,7 @@ def main() -> int:
                         "uint8, L2 flushed before the call"})
     print(json.dumps({"times": times, "main_paths": runs, "aux": aux,
                       "match": match, "match_index": match_index,
-                      "native": native,
+                      "native": native, "level1": level1,
                       "bench": bench_lines,
                       "probe_device_ops": probe_result["device_ops"],
                       "card": smi, "seconds": seconds}))

@@ -204,7 +204,7 @@ def test_import_leaves_jax_out():
             "'ops.zstd_seq', 'ops.zstd_match', 'native_backend', "
             "'utils._native_build', 'utils.native_fast5', "
             "'utils.h5py_helpers', 'tools.h5repack_vbz', "
-            "'tools.benchmark_hdf5'}\n"
+            "'tools.benchmark_hdf5', 'utils.libzstd'}\n"
             "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
             "assert not missing, missing\n"
             "chip_smoke.Port()\n"

@@ -16,7 +16,7 @@ import torch
 
 import bench as jax_bench
 from vbz_compression_tpu.utils import profiling as jax_profiling
-from vbz_compression_tpu_torch import bench, signals
+from vbz_compression_tpu_torch import api, bench, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
 from vbz_compression_tpu_torch.ops import _build, svb_w2
 from vbz_compression_tpu_torch.utils import profiling, roofline
@@ -144,9 +144,10 @@ def test_json_lines_carry_bench_py_metric_names():
     assert line["sol_enc_gb_s"] == pytest.approx(2000.0 / 1.6)
     pipe = bench.pipeline_line({"enc": 1.0, "dec": 0.5, "combined": 2 / 3,
                                 "bytes": 625, "input_bytes": 1000,
-                                "zstd_level": 0})
+                                "zstd_level": 0, "zstd_route": None})
     assert pipe["metric"] == "int16_signal_pipeline_encdec_throughput"
     assert pipe["zstd_level"] == 0 and pipe["ratio"] == 0.625
+    assert pipe["zstd_route"] is None
     assert set(bench.NOT_MEASURED) == {"int16_signal_pipeline_own_encoder",
                                        "vs_baseline"}
     for obj in (line, pipe, {"not_measured": bench.NOT_MEASURED}):
@@ -155,8 +156,8 @@ def test_json_lines_carry_bench_py_metric_names():
 
 def test_own_encoder_line_follows_the_installed_package(monkeypatch):
     """The own encoder's line has the root bench.py's metric name and
-    keys; it is measured at level 1 (zstandard decodes its frames) and
-    listed as not measured, with the reason, at level 0."""
+    keys; it is measured at level 1 (the api's zstd stage decodes its
+    frames) and listed as not measured, with the reason, at level 0."""
     own = {"enc": 0.02, "dec": 0.5, "combined": bench._hm(0.02, 0.5),
            "bytes": 630, "input_bytes": 1000, "zstd_level": 1}
     pipe = dict(own, bytes=600)
@@ -167,7 +168,7 @@ def test_own_encoder_line_follows_the_installed_package(monkeypatch):
     assert json.loads(json.dumps(line)) == line
     assert set(bench.not_measured(1)) == {"vs_baseline"}
     assert bench.not_measured(0) == bench.NOT_MEASURED
-    assert "zstandard" in bench.not_measured(0)[bench.OWN_LINE]
+    assert "libzstd.so.1" in bench.not_measured(0)[bench.OWN_LINE]
     monkeypatch.setenv("VBZ_ZSTD_ENCODER", "own-tpu")
     with bench.encoder_env("own"):
         assert os.environ["VBZ_ZSTD_ENCODER"] == "own"
@@ -181,15 +182,23 @@ def test_own_encoder_line_follows_the_installed_package(monkeypatch):
 
 
 def test_zstd_level_follows_the_installed_package(monkeypatch):
-    import importlib.util
+    """Level 1 wherever the api's zstd stage runs: through zstandard, or
+    through libzstd.so.1 where zstandard is missing; 0 where neither
+    loads."""
+    import ctypes.util
 
-    real = importlib.util.find_spec
-    monkeypatch.setattr(importlib.util, "find_spec",
-                        lambda name, *a: None if name == "zstandard"
-                        else real(name, *a))
-    assert bench.zstd_level() == 0
-    monkeypatch.setattr(importlib.util, "find_spec", real)
-    assert bench.zstd_level() == (1 if real("zstandard") else 0)
+    from vbz_compression_tpu_torch.utils import libzstd
+
+    assert bench.zstd_level() == 1
+    monkeypatch.setattr(api, "_zstandard", lambda: None)
+    assert bench.zstd_level() == 1
+    monkeypatch.setattr(libzstd, "_NAMES", ("libzstd-absent.so.0",))
+    monkeypatch.setattr(ctypes.util, "find_library", lambda name: None)
+    libzstd.lib.cache_clear()
+    try:
+        assert bench.zstd_level() == 0
+    finally:
+        libzstd.lib.cache_clear()
 
 
 def test_measurements_need_a_card(monkeypatch):

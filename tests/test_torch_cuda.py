@@ -11,7 +11,10 @@ scan M at both widths against its plain versions (``signals.match_cases``,
 the clean payload, views off alignment, repeated calls, threads), the
 own-tpu zstd stage's frames against the CPU path's and, with the native
 encoder branches, against the NumPy branches'; level-1 frames decoded
-through the native C ABI. Exact.
+through the native C ABI; the main option sets at zstd level 1 through the
+api's zstd stage (``libzstd.so.1`` where ``zstandard`` is not installed),
+the corpus driver at its defaults and the numpy api on default options,
+against the oracle backend through the same stage. Exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports nothing of the JAX package, so it also runs where only the port is
@@ -794,3 +797,70 @@ def test_butterfly_matches_plain_on_card(cuda_device, stages, dtype):
             got = probes.butterfly(x, stages)
             assert probes.LAUNCHES[key] == before + 1
             assert torch.equal(got, probes.butterfly_plain(x, stages)), n
+
+
+# chip_smoke.MAIN_PATHS' option sets and corpus contents, at zstd level 1.
+_LEVEL1_PATHS = [
+    ((0, 2, 1, 1), "int16"), ((0, 4, 1, 1), "int32_walk"),
+    ((1, 1, 1, 1), "int8_walk"), ((0, 2, 0, 1), "adc_u16"),
+    ((1, 1, 0, 1), "u8"), ((0, 1, 0, 1), "u8"), ((0, 4, 0, 1), "u32"),
+]
+_LEVEL1_LENGTHS = [0, 1, 4999, 70_001, 1_000_003]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd_values,content", _LEVEL1_PATHS,
+                         ids=[str(c) for c, _ in _LEVEL1_PATHS])
+def test_level1_main_paths_match_oracle_on_card(cuda_device, cd_values,
+                                                content):
+    """The batch API at level 1 on the card: frames equal the oracle
+    backend's through the same zstd stage, every read back."""
+    from vbz_compression_tpu_torch.utils import libzstd
+
+    opts = CompressionOptions.from_cd_values(cd_values)
+    if content == "int16":
+        rng = np.random.default_rng(8)
+        reads = [signals.walk_with_reads(rng, n) if n else
+                 np.zeros(0, np.int16) for n in _LEVEL1_LENGTHS]
+    else:
+        reads = signals.corpus_of(content, _LEVEL1_LENGTHS)
+    backend = TorchSvbBackend(cuda_device)
+    before = libzstd.CALLS["ZSTD_compress2"]
+    frames = api.vbz_compress_sized_batch(reads, opts, backend=backend)
+    if api.zstd_route().startswith("libzstd.so"):
+        assert libzstd.CALLS["ZSTD_compress2"] - before == len(reads)
+    assert frames == api.vbz_compress_sized_batch(reads, opts,
+                                                  backend=oracle)
+    back = api.vbz_decompress_sized_batch(frames, opts, backend=backend)
+    assert back == [r.tobytes() for r in reads]
+
+
+@pytest.mark.cuda
+def test_compress_signals_defaults_on_card(cuda_device):
+    """The corpus driver at its default options (zstd level 1) on the
+    card: the oracle's frames through the same zstd stage, reads back."""
+    reads = signals.pseudo_reads(8)
+    opts = CompressionOptions(True, 2, 1, 0)
+    frames = multihost.compress_signals(reads, device=cuda_device)
+    assert frames == [api.vbz_compress_sized(r, opts, backend=oracle)
+                      for r in reads]
+    back = api.vbz_decompress_sized_batch(
+        frames, opts, backend=TorchSvbBackend(cuda_device))
+    assert back == [r.tobytes() for r in reads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32, np.int8, np.uint16,
+                                   np.uint8, np.uint32])
+def test_numpy_api_default_options_on_card(cuda_device, dtype):
+    """api.compress / decompress with no options (level 1, the dtype's
+    flavor) on the card: the oracle backend's frame, the array back."""
+    rng = np.random.default_rng(12)
+    info = np.iinfo(dtype)
+    arr = np.clip(500 + np.cumsum(rng.normal(0, 40, 300_001)), info.min,
+                  info.max).astype(dtype)
+    backend = TorchSvbBackend(cuda_device)
+    frame = api.compress(arr, backend=backend)
+    assert frame.tobytes() == api.compress(arr, backend=oracle).tobytes()
+    np.testing.assert_array_equal(api.decompress(frame, dtype,
+                                                 backend=backend), arr)

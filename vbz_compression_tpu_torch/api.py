@@ -3,10 +3,12 @@ surface, in Python.
 
 The port's own copy of the pipeline in ``vbz_compression_tpu.api`` (the
 reference ``vbz/vbz.cpp``): option validation, v0/v1 version dispatch, the
-optional StreamVByte stage, the optional zstd stage (host-side libzstd
-through the ``zstandard`` package, imported when a level above 0 is used,
+optional StreamVByte stage, the optional zstd stage (host-side libzstd,
 or the from-scratch RFC 8878 encoder of ``ops.zstd_seq`` that
 ``VBZ_ZSTD_ENCODER`` chooses) and the 4-byte little-endian sized framing.
+libzstd is reached through the ``zstandard`` package where it imports, as
+the JAX package reaches it, else through ``libzstd.so.1`` by ctypes
+(:mod:`.utils.libzstd`); :func:`zstd_route` says which.
 The StreamVByte stage is the ``backend=`` argument: a
 :class:`~.models.codec.TorchSvbBackend`, or any object with the same
 methods, such as the NumPy oracle (``oracle``) or the native C++ codec
@@ -25,6 +27,7 @@ and zstd, in the batch calls' thread pool, as the JAX package's api does.
 
 from __future__ import annotations
 
+import functools
 import os
 import struct
 import warnings
@@ -41,6 +44,7 @@ from .errors import (
 from .models.codec import TorchSvbBackend
 from .ops import scalar, zstd_match, zstd_seq
 from .options import CompressionOptions
+from .utils import libzstd
 
 SIZED_HEADER_BYTES = 4  # VbzSizedHeader{uint32 original_size}, vbz/vbz.cpp:52-55
 
@@ -83,6 +87,29 @@ def _as_bytes(data) -> bytes:
 # ---------------------------------------------------------------------------
 
 
+@functools.cache
+def _zstandard():
+    """The ``zstandard`` module where it imports, else None: the stage then
+    calls ``libzstd.so.1`` through :mod:`.utils.libzstd`. Chosen once;
+    tests patch this attribute to force the ctypes route."""
+    try:
+        import zstandard
+    except ImportError:
+        return None
+    return zstandard
+
+
+def zstd_route() -> str:
+    """The library the zstd stage calls: ``"zstandard <ver> (libzstd
+    <ver>)"`` or ``"libzstd.so.1 <ver>"``; ``OSError`` where neither
+    loads."""
+    zstandard = _zstandard()
+    if zstandard is not None:
+        return (f"zstandard {zstandard.__version__} (libzstd "
+                f"{'.'.join(map(str, zstandard.ZSTD_VERSION))})")
+    return f"{libzstd.lib().name} {libzstd.version_string()}"
+
+
 def zstd_compress_bound(source_size: int) -> int:
     """The public ``ZSTD_COMPRESSBOUND`` formula (zstd.h macro)."""
     margin = ((128 << 10) - source_size) >> 11 if source_size < (128 << 10) else 0
@@ -120,8 +147,8 @@ def scan_device(backend=None) -> torch.device:
 def zstd_compress(data: bytes, level: int, encoder: str | None = None, *,
                   device=None) -> bytes:
     """zstd stage. ``encoder`` (or env ``VBZ_ZSTD_ENCODER``):
-    - "libzstd" (default): the zstandard package, with the tuned level-1
-      dfast profile below;
+    - "libzstd" (default): libzstd (:func:`zstd_route`), with the tuned
+      level-1 dfast profile below;
     - "own": the from-scratch RFC 8878 encoder (:mod:`.ops.zstd_seq` —
       Huffman literals + LZ77 matches + FSE sequences), hash index on the
       host;
@@ -146,8 +173,9 @@ def zstd_compress(data: bytes, level: int, encoder: str | None = None, *,
         return zstd_seq.compress_frame(
             bytes(data), matcher="device",
             device=scan_device() if device is None else device)
-    import zstandard
-
+    zstandard = _zstandard()
+    if zstandard is None:
+        return libzstd.compress(data, level)
     level = max(min(int(level), zstandard.MAX_COMPRESSION_LEVEL), -131072)
     try:
         if level == 1:
@@ -172,7 +200,9 @@ def zstd_compress(data: bytes, level: int, encoder: str | None = None, *,
 def zstd_frame_content_size(data: bytes) -> int:
     """``ZSTD_getFrameContentSize`` equivalent; raises VBZ_ZSTD_ERROR when the
     frame is invalid or the content size is unknown (``vbz/vbz.cpp:236-240``)."""
-    import zstandard
+    zstandard = _zstandard()
+    if zstandard is None:
+        return libzstd.frame_content_size(data)
 
     try:
         params = zstandard.get_frame_parameters(data)
@@ -185,7 +215,9 @@ def zstd_frame_content_size(data: bytes) -> int:
 
 
 def zstd_decompress(data: bytes, expected_size: int) -> bytes:
-    import zstandard
+    zstandard = _zstandard()
+    if zstandard is None:
+        return libzstd.decompress(data, expected_size)
 
     try:
         dctx = zstandard.ZstdDecompressor()

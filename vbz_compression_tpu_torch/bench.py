@@ -21,12 +21,13 @@ A port of the root ``bench.py`` (its ``tpu_codec_gbps`` and
   must move, ``utils.roofline.codec_bytes``) as a share of both;
 - pipeline: ``api.vbz_compress_sized_batch`` / ``vbz_decompress_sized_batch``
   on the clean tier as 4 chunks of 8 MiB, host bytes to host bytes through
-  the CUDA backend, at zstd level 1 where ``zstandard`` is installed and
-  level 0 where it is not; the line names the level;
+  the CUDA backend, at zstd level 1 wherever the api's zstd stage runs
+  (``zstandard`` or ``libzstd.so.1`` loads, :func:`..api.zstd_route`) and
+  level 0 where neither does; the line names the level and the route;
 - own encoder: the same pipeline with the from-scratch zstd encoder
   (``VBZ_ZSTD_ENCODER=own``, the root ``bench.py``'s
-  ``int16_signal_pipeline_own_encoder``), decoded through ``zstandard``;
-  where that package is missing the line is not measured, and
+  ``int16_signal_pipeline_own_encoder``), decoded through the api's zstd
+  stage; where that stage cannot run the line is not measured, and
   ``not_measured`` says why.
 
 Prints the card's name and power limit, then JSON lines with ``bench.py``'s
@@ -38,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib.util
 import json
 import os
 import sys
@@ -63,8 +63,9 @@ FLUSH_BYTES = 256 << 20     # zeroed before a cold call: over 5x the L2
 OWN_LINE = "int16_signal_pipeline_own_encoder"
 NOT_MEASURED = {
     OWN_LINE:
-        "the own encoder's level-1 frames decode through the zstandard "
-        "package, which is not installed here",
+        "the own encoder's level-1 frames decode through the api's zstd "
+        "stage, which found neither the zstandard package nor "
+        "libzstd.so.1 here",
     "vs_baseline":
         "the reference codec's bench (native/ref_bench) builds from the "
         "reference's sources, which a checkout of this repository does not "
@@ -158,8 +159,13 @@ def roofline_shares(tiers: dict, copy_gb_s: float) -> None:
 
 
 def zstd_level() -> int:
-    """1 where ``zstandard`` is installed, else 0 (no zstd stage)."""
-    return 1 if importlib.util.find_spec("zstandard") is not None else 0
+    """1 where the api's zstd stage runs (``zstandard`` or
+    ``libzstd.so.1`` loads), else 0 (no zstd stage)."""
+    try:
+        api.zstd_route()
+    except OSError:
+        return 0
+    return 1
 
 
 @contextlib.contextmanager
@@ -209,13 +215,15 @@ def pipeline_gbps(clean: np.ndarray, backend: TorchSvbBackend,
     enc, dec = total / enc_s / 1e9, total / dec_s / 1e9
     return {"enc": enc, "dec": dec, "combined": _hm(enc, dec),
             "bytes": sum(map(len, frames)), "input_bytes": total,
-            "zstd_level": level}
+            "zstd_level": level,
+            "zstd_route": api.zstd_route() if level else None}
 
 
 def pipeline_line(pipe: dict) -> dict:
     return {"metric": "int16_signal_pipeline_encdec_throughput",
             "value": pipe["combined"], "unit": "GB/s",
             "zstd_level": pipe["zstd_level"],
+            "zstd_route": pipe["zstd_route"],
             "encode_gb_s": pipe["enc"], "decode_gb_s": pipe["dec"],
             "ratio": pipe["bytes"] / pipe["input_bytes"]}
 
@@ -231,7 +239,8 @@ def own_line(own: dict, pipe: dict) -> dict:
 
 def not_measured(level: int) -> dict:
     """What the run leaves out and why: NOT_MEASURED, less the own
-    encoder's line at level 1, where ``zstandard`` decodes its frames."""
+    encoder's line at level 1, where the api's zstd stage decodes its
+    frames."""
     return {k: v for k, v in NOT_MEASURED.items()
             if not (level and k == OWN_LINE)}
 

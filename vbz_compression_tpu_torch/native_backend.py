@@ -7,8 +7,11 @@ which :mod:`.utils._native_build` compiles from ``native/`` into
 ``build/native/`` at the first call. Exposes both:
 
 - the raw C ABI (``vbz_compress_sized`` etc.) for strict pyvbz parity; it
-  runs libzstd in C, so it also reads level-1 frames where the
-  ``zstandard`` package is not installed;
+  runs libzstd in C (stock ``ZSTD_compress`` at the options' level, not
+  the api's tuned level-1 profile), a reader of level-1 frames beside the
+  api's own zstd stage, which reaches libzstd through ``zstandard`` or,
+  where that package is not installed, ``libzstd.so.1``
+  (:mod:`.utils.libzstd`);
 - the backend interface (``svb_compress``/``svb_decompress``) so the
   pipeline API can run the native codec on the CPU when a caller names it
   (``VBZ_BACKEND=native`` or ``backend=native_backend``).

@@ -8,7 +8,9 @@ On the pseudo-read corpus (:func:`..signals.pseudo_reads`: 256 int16 reads,
 
 - :func:`..parallel.multihost.compress_signals` host to host (best of
   ``REPEATS`` wall times) at zstd level 0, with zig-zag (kernel E) and
-  without (E4), and its launches per call;
+  without (E4), and at level 1 with zig-zag (its default and the
+  fast5 filter's, through the api's zstd stage: ``zstandard`` or
+  ``libzstd.so.1``), and its launches per call;
 - the driver's device portion: the encode of each bucket's padded batch,
   staged on the card as the backend pads it, CUDA events around one pass
   with the L2 flushed before it (back to back, the host's enqueue of a
@@ -22,7 +24,6 @@ On the pseudo-read corpus (:func:`..signals.pseudo_reads`: 256 int16 reads,
 
 Prints the card's name and power limit first, then one JSON line per
 measurement, each carrying the card; ``--out`` also writes them to a file.
-zstd level 0 only, so that no ``zstandard`` is needed.
 """
 
 from __future__ import annotations
@@ -53,8 +54,7 @@ def measure() -> list[dict]:
     import torch
     import torch.distributed as dist
 
-    from .. import oracle
-    from ..api import vbz_compress_sized
+    from .. import api, oracle
     from ..models import codec
     from ..ops import svb_w2, svb_w4
     from ..options import CompressionOptions
@@ -81,11 +81,11 @@ def measure() -> list[dict]:
     # each bucket's batch padded as the backend pads it: to its longest read
     staged = [codec.padded_rows(rows, dev) for rows in by_bucket.values()]
     padded = sum(x.numel() * x.element_size() for x, _ in staged)
-    for zigzag in (True, False):
-        opts = CompressionOptions(zigzag, 2, 0, 0)
+    for zigzag, level in ((True, 0), (False, 0), (True, 1)):
+        opts = CompressionOptions(zigzag, 2, level, 0)
         frames = multihost.compress_signals(reads, opts, device=dev)
         for r, f in zip(reads[:3], frames):
-            if f != vbz_compress_sized(r, opts, backend=oracle):
+            if f != api.vbz_compress_sized(r, opts, backend=oracle):
                 raise SystemExit(f"{opts.cd_values}: a frame differs from "
                                  "the oracle's")
         mod = svb_w2 if zigzag else svb_w4
@@ -107,6 +107,7 @@ def measure() -> list[dict]:
 
         cold = profiling.cold_ms(device_pass, flush, REPEATS)
         emit({"what": "compress_signals", "options": list(opts.cd_values),
+              "zstd_route": api.zstd_route() if level else None,
               "kernel": "E" if zigzag else "E4", "reads": len(reads),
               "raw_bytes": raw, "padded_bytes": padded,
               "buckets": [list(x.shape) for x, _ in staged],

@@ -9,7 +9,10 @@ joins the process group at ``INIT`` (``file://...`` or ``tcp://host:port``)
 as rank ``RANK`` of ``WORLD``, compresses its round-robin share of the gzip
 fast5 files ``PATH...`` into ``OUT_DIR/<name>.vbz`` and prints one JSON line
 of the global corpus stats, the same on every rank, with this process's
-kernel launches. Each rank runs on its card, ``cuda:<rank % device_count>``
+kernel launches, its zstd stage's route (``api.zstd_route``) and its
+calls of ``ZSTD_compress2`` through ``libzstd.so.1`` (0 where the
+``zstandard`` package runs the stage). Each rank runs on its card,
+``cuda:<rank % device_count>``
 (``VBZ_BACKEND=torch``: the CPU). With
 ``--pseudo-reads N --files F`` in place of paths it compresses the
 pseudo-read corpus (:func:`..signals.pseudo_reads`) split into ``F``
@@ -38,9 +41,11 @@ def pseudo_files(n_reads: int, files: int) -> dict:
 def main(argv=None) -> int:
     import torch.distributed as dist
 
+    from .. import api
     from ..ops import svb_v1, svb_w2, svb_w4
     from ..options import CompressionOptions
     from ..parallel import multihost
+    from ..utils import libzstd
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("init_method")
@@ -79,6 +84,8 @@ def main(argv=None) -> int:
         "compressed_bytes": stats.compressed_bytes,
         "ratio": stats.ratio, "seconds": seconds,
         "zstd_level": args.zstd_level,
+        "zstd_route": api.zstd_route() if args.zstd_level else None,
+        "libzstd_compress_calls": libzstd.CALLS["ZSTD_compress2"],
         "launches": {f"{name}_{d}": n for name, m in (
             ("w2", svb_w2), ("w4", svb_w4), ("v1", svb_v1))
             for d, n in (("encode", m.ENCODE_LAUNCHES),
