@@ -1,0 +1,6 @@
+"""decode_gb_s: raw int16 bytes the entry returned to the host, per second of
+the window (GB/s, 1e9 bytes), over all the window's calls and all its time."""
+
+
+def read(run):
+    return run.rate_gb_s()
