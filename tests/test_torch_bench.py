@@ -2,8 +2,8 @@
 its instrumentation on the CPU: ``signals.gen_signal`` byte for byte against
 ``native/gen_signal``, the bench's tiers against the root ``bench.py``'s,
 the round trip of every tier through the plain versions, the shape and
-metric names of its JSON lines, ``utils.profiling`` against the JAX
-package's, and the measurement paths raising without a card."""
+metric names of its JSON lines, ``utils.profiling``'s chrome trace, and the
+measurement paths raising without a card."""
 
 import json
 import os
@@ -15,7 +15,6 @@ import pytest
 import torch
 
 import bench as jax_bench
-from vbz_compression_tpu.utils import profiling as jax_profiling
 from vbz_compression_tpu_torch import api, bench, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
 from vbz_compression_tpu_torch.ops import _build, svb_w2
@@ -211,25 +210,6 @@ def test_measurements_need_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA card"):
         bench.run(rows)
     assert bench.main([]) == 1
-
-
-@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 4099])
-def test_xor_checksum_matches_jax_package(n):
-    buf = np.random.default_rng(n).integers(0, 256, n,
-                                            dtype=np.uint8).tobytes()
-    assert profiling.xor_checksum(buf) == jax_profiling.xor_checksum(buf)
-
-
-def test_debug_checksums_match_jax_package(monkeypatch, capsys):
-    monkeypatch.setenv("VBZ_DEBUG", "1")
-    bufs = {"a": b"abcde", "b": bytes(range(16))}
-    profiling.debug_checksums("tag", **bufs)
-    port = capsys.readouterr().err
-    jax_profiling.debug_checksums("tag", **bufs)
-    assert port == capsys.readouterr().err and "checksum=" in port
-    monkeypatch.setenv("VBZ_DEBUG", "0")
-    profiling.debug_checksums("tag", **bufs)
-    assert capsys.readouterr().err == ""
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -10,6 +10,17 @@ length.
 A batch call puts all of its chunks into one padded ``[B, Nmax]`` tensor with
 per-row lengths, so one launch sequence per direction serves the whole call.
 
+A batch call's host spans (:mod:`..utils.profiling`): ``backend.encode`` or
+``backend.decode`` around it; inside, ``backend.validate`` (the streams'
+bytes), ``backend.pack`` (typing, concatenation, the padded tensors and the
+per-row copies' enqueue), ``backend.h2d`` and ``backend.d2h`` (each copy
+and its bytes), ``backend.launch`` (the kernel wrapper's call),
+``backend.gather`` (the rows' concatenation on the device) and
+``backend.unpack`` (the host split into rows). While the recorder is on and
+the device is a card, ``backend.wait`` synchronizes the stream just before
+the first read that would wait for the card anyway, so that the wait is
+its own span.
+
 Every flavor of the v0/v1 option lattice has a kernel pair:
     W2 (``ops.svb_w2``, kernels E/D): zz16, and v0 zz8;
     W4 (``ops.svb_w4``, kernels E4/D4): zz32, none32, none16, v0 none8;
@@ -30,6 +41,7 @@ from ..errors import (
     VbzError,
 )
 from ..ops import scalar, svb_v1, svb_w2, svb_w4
+from ..utils import profiling
 
 _SIGNED_FOR_SIZE = {1: np.int8, 2: np.int16, 4: np.int32}
 
@@ -118,17 +130,33 @@ def padded_rows(rows: list[np.ndarray], device, width: int | None = None):
     device as one copy. Each row's tail is left unset: the encoders give
     every value past lens[b] code 0 and no data bytes, which is what the JAX
     backend's tail padding (its last sample repeated) was for."""
-    counts = [r.size for r in rows]
-    if width is None:
-        width = -(-max(counts) // 4) * 4
-    flat = torch.from_numpy(np.concatenate(rows)).to(device)
-    x = torch.empty(len(rows), width, dtype=flat.dtype, device=device)
-    start = 0
-    for b, n in enumerate(counts):
-        x[b, :n] = flat[start:start + n]
-        start += n
-    lens = torch.tensor(counts, dtype=torch.int32, device=device)
+    with profiling.span("backend.pack"):
+        counts = [r.size for r in rows]
+        if width is None:
+            width = -(-max(counts) // 4) * 4
+        host = np.concatenate(rows)
+    with profiling.span("backend.h2d", host.nbytes):
+        flat = torch.from_numpy(host).to(device)
+    with profiling.span("backend.pack"):
+        x = torch.empty(len(rows), width, dtype=flat.dtype, device=device)
+        start = 0
+        for b, n in enumerate(counts):
+            x[b, :n] = flat[start:start + n]
+            start += n
+    with profiling.span("backend.h2d", 4 * len(counts)):
+        lens = torch.tensor(counts, dtype=torch.int32, device=device)
     return x, lens
+
+
+def _wait(device: torch.device) -> None:
+    """Span ``backend.wait``: the host blocked until the card's stream is
+    done. Only while the recorder is on, and only on a card: the read that
+    follows would wait as long."""
+    if device.type != "cuda":
+        return
+    with profiling.span("backend.wait") as s:
+        if s:
+            torch.cuda.current_stream(device).synchronize()
 
 
 def wire_streams(keys: torch.Tensor, data: torch.Tensor, key_lens: list[int],
@@ -136,11 +164,16 @@ def wire_streams(keys: torch.Tensor, data: torch.Tensor, key_lens: list[int],
     """Each row's wire stream, its first ``key_lens[j]`` key bytes and then
     its first ``data_lens[j]`` data bytes, gathered on the device and copied
     to the host once."""
-    flat = torch.cat([keys[j, :k] for j, k in enumerate(key_lens)]
-                     + [data[j, :d] for j, d in enumerate(data_lens)])
-    parts = _split(flat.cpu().numpy(), key_lens + data_lens)
-    B = len(key_lens)
-    return [parts[j].tobytes() + parts[B + j].tobytes() for j in range(B)]
+    with profiling.span("backend.gather"):
+        flat = torch.cat([keys[j, :k] for j, k in enumerate(key_lens)]
+                         + [data[j, :d] for j, d in enumerate(data_lens)])
+    with profiling.span("backend.d2h", flat.numel()):
+        host = flat.cpu().numpy()
+    with profiling.span("backend.unpack"):
+        parts = _split(host, key_lens + data_lens)
+        B = len(key_lens)
+        return [parts[j].tobytes() + parts[B + j].tobytes()
+                for j in range(B)]
 
 
 class TorchSvbBackend:
@@ -159,17 +192,28 @@ class TorchSvbBackend:
 
     def svb_compress_batch(self, arrays, integer_size: int, use_zigzag: bool,
                            version: int) -> list:
+        with profiling.span("backend.encode"):
+            return self._compress_batch(arrays, integer_size, use_zigzag,
+                                        version)
+
+    def _compress_batch(self, arrays, integer_size, use_zigzag,
+                        version) -> list:
         kind, flavor = _route(integer_size, use_zigzag, version)
-        typed = [_typed_input(a, integer_size) for a in arrays]
-        live = [i for i, t in enumerate(typed) if t.size]
-        out = [b""] * len(typed)
+        with profiling.span("backend.pack"):
+            typed = [_typed_input(a, integer_size) for a in arrays]
+            live = [i for i, t in enumerate(typed) if t.size]
+            out = [b""] * len(typed)
         if not live:
             return out
         rows = [typed[i] for i in live]
         x, lens = padded_rows(rows, self.device)
-        keys, data, data_len = _KINDS[kind][0](x, lens, flavor)
+        with profiling.span("backend.launch"):
+            keys, data, data_len = _KINDS[kind][0](x, lens, flavor)
+        _wait(self.device)
+        with profiling.span("backend.d2h", 4 * len(rows)):
+            data_lens = data_len.tolist()
         streams = wire_streams(keys, data, [(r.size + 3) // 4 for r in rows],
-                               data_len.tolist())
+                               data_lens)
         for i, stream in zip(live, streams):
             out[i] = stream
         return out
@@ -183,6 +227,12 @@ class TorchSvbBackend:
 
     def svb_decompress_batch(self, streams, counts, integer_size: int,
                              use_zigzag: bool, version: int) -> list:
+        with profiling.span("backend.decode"):
+            return self._decompress_batch(streams, counts, integer_size,
+                                          use_zigzag, version)
+
+    def _decompress_batch(self, streams, counts, integer_size, use_zigzag,
+                          version) -> list:
         kind, flavor = _route(integer_size, use_zigzag, version)
         _, decode, per_value = _KINDS[kind]
         dtype = _SIGNED_FOR_SIZE[integer_size]
@@ -190,30 +240,45 @@ class TorchSvbBackend:
         counts = [int(c) for c in counts]
         out = [np.zeros(0, dtype)] * len(bufs)
         live, key_lens = [], []
-        for i, (buf, count) in enumerate(zip(bufs, counts)):
-            if not _is_empty(buf, count):
-                key_lens.append(_check_stream(buf, count, kind))
-                live.append(i)
+        with profiling.span("backend.validate") as s:
+            if s:
+                s.add(sum(buf.size for buf in bufs))
+            for i, (buf, count) in enumerate(zip(bufs, counts)):
+                if not _is_empty(buf, count):
+                    key_lens.append(_check_stream(buf, count, kind))
+                    live.append(i)
         if not live:
             return out
-        width = -(-max(counts[i] for i in live) // 4) * 4
-        B = len(live)
-        flat = torch.from_numpy(np.concatenate([bufs[i] for i in live])).to(
-            self.device)
-        keys = torch.zeros(B, width // 4, dtype=torch.uint8, device=self.device)
-        data = torch.empty(B, per_value * width, dtype=torch.uint8,
-                           device=self.device)
-        start = 0
-        for b, (i, k) in enumerate(zip(live, key_lens)):
-            n = bufs[i].size
-            keys[b, :k] = flat[start:start + k]
-            data[b, :n - k] = flat[start + k:start + n]
-            start += n
-        cnt = torch.tensor([counts[i] for i in live], dtype=torch.int32,
-                           device=self.device)
-        rows = decode(keys, data, cnt, flavor)
+        with profiling.span("backend.pack"):
+            width = -(-max(counts[i] for i in live) // 4) * 4
+            B = len(live)
+            host = np.concatenate([bufs[i] for i in live])
+        with profiling.span("backend.h2d", host.nbytes):
+            flat = torch.from_numpy(host).to(self.device)
+        with profiling.span("backend.pack"):
+            keys = torch.zeros(B, width // 4, dtype=torch.uint8,
+                               device=self.device)
+            data = torch.empty(B, per_value * width, dtype=torch.uint8,
+                               device=self.device)
+            start = 0
+            for b, (i, k) in enumerate(zip(live, key_lens)):
+                n = bufs[i].size
+                keys[b, :k] = flat[start:start + k]
+                data[b, :n - k] = flat[start + k:start + n]
+                start += n
+        with profiling.span("backend.h2d", 4 * B):
+            cnt = torch.tensor([counts[i] for i in live], dtype=torch.int32,
+                               device=self.device)
+        with profiling.span("backend.launch"):
+            rows = decode(keys, data, cnt, flavor)
         sizes = [counts[i] for i in live]
-        flat_out = torch.cat([rows[b, :n] for b, n in enumerate(sizes)])
-        for i, part in zip(live, _split(flat_out.cpu().numpy(), sizes)):
-            out[i] = part
+        with profiling.span("backend.gather"):
+            flat_out = torch.cat([rows[b, :n] for b, n in enumerate(sizes)])
+        _wait(self.device)
+        with profiling.span("backend.d2h",
+                            flat_out.numel() * flat_out.element_size()):
+            host_out = flat_out.cpu().numpy()
+        with profiling.span("backend.unpack"):
+            for i, part in zip(live, _split(host_out, sizes)):
+                out[i] = part
         return out

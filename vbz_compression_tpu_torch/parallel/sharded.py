@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from .. import api
 from ..models import codec
 from ..ops import _rows
+from ..utils import profiling
 
 
 def rank_world(group=None) -> tuple[int, int]:
@@ -144,21 +145,31 @@ def batch_decode_sharded(streams: torch.Tensor, lengths: torch.Tensor,
     length), and for every rank's rows in rank order whether the stream is
     well formed as ``jax_svb`` decides it: the data end that the keys give
     equals ``stream_lens[b]``, and the key section fits in it.
+
+    Host spans (the enqueue, not the card's time): ``plane.decode``, the
+    root of a call, around ``plane.layout`` (the padded key slice and the
+    data gather), ``plane.launch`` (kernel D's wrapper) and ``plane.ok``
+    (the key counts behind ``ok``).
     """
-    _, decode, _, flavor = _codec(integer_size, use_zigzag)
-    if out_n % 4:
-        raise ValueError(f"out_n={out_n} is not a multiple of 4")
-    M = streams.shape[1]
-    keys = F.pad(streams[:, :out_n // 4], (0, max(out_n // 4 - M, 0)))
-    kl = ((lengths + 3) // 4).to(torch.int64)
-    p = torch.arange(M, device=streams.device)
-    data = torch.gather(F.pad(streams, (0, 1)), 1,
-                        (p + kl[:, None]).clamp(max=M))
-    out = decode(keys.contiguous(), data, lengths, flavor)
-    sizes = (_rows.unpack_keys(keys) + 1) * _rows.valid_mask(lengths, out_n)
-    data_end = kl + sizes.sum(dim=1)
-    ok = (data_end == stream_lens) & (kl <= stream_lens)
-    return out, all_gather(ok.to(torch.uint8), group).bool()
+    with profiling.call("plane.decode"):
+        _, decode, _, flavor = _codec(integer_size, use_zigzag)
+        if out_n % 4:
+            raise ValueError(f"out_n={out_n} is not a multiple of 4")
+        with profiling.span("plane.layout"):
+            M = streams.shape[1]
+            keys = F.pad(streams[:, :out_n // 4], (0, max(out_n // 4 - M, 0)))
+            kl = ((lengths + 3) // 4).to(torch.int64)
+            p = torch.arange(M, device=streams.device)
+            data = torch.gather(F.pad(streams, (0, 1)), 1,
+                                (p + kl[:, None]).clamp(max=M))
+        with profiling.span("plane.launch"):
+            out = decode(keys.contiguous(), data, lengths, flavor)
+        with profiling.span("plane.ok"):
+            sizes = (_rows.unpack_keys(keys) + 1) * _rows.valid_mask(
+                lengths, out_n)
+            data_end = kl + sizes.sum(dim=1)
+            ok = (data_end == stream_lens) & (kl <= stream_lens)
+        return out, all_gather(ok.to(torch.uint8), group).bool()
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Profiling and debug instrumentation.
+"""Profiling instrumentation.
 
 The port's counterpart of ``vbz_compression_tpu/utils/profiling.py``:
 
@@ -7,8 +7,9 @@ The port's counterpart of ``vbz_compression_tpu/utils/profiling.py``:
   one is given;
 - :func:`annotate`: a named range, seen by ``torch.profiler``
   (``record_function``) and, on a card, by NVTX tools;
-- :func:`debug_checksums`: ``VBZ_DEBUG``-gated XOR checksums of buffers, in
-  the native plugin's format, so host and device paths can be diffed;
+- :func:`span` and :func:`call`: the program's own host spans, off by
+  default; :func:`recording` (or :func:`start` / :func:`stop`) turns them
+  on and :func:`spans` hands out the records;
 - :func:`warm_ms` and :func:`cold_ms`: a call's device time from CUDA
   events, back to back or with the L2 flushed before it; :func:`card`: the
   card's name and power limit, which every number measured on it carries.
@@ -17,37 +18,14 @@ The port's counterpart of ``vbz_compression_tpu/utils/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import subprocess
-import sys
+import threading
+import time
+from typing import NamedTuple
 
-import numpy as np
 import torch
-
-
-def debug_enabled() -> bool:
-    v = os.environ.get("VBZ_DEBUG", "")
-    return bool(v) and v != "0"
-
-
-def xor_checksum(buf) -> int:
-    """Same rolling XOR as the native plugin's debug output."""
-    arr = np.frombuffer(bytes(buf), dtype=np.uint8)
-    pad = (-arr.size) % 4
-    if pad:
-        arr = np.concatenate([arr, np.zeros(pad, np.uint8)])
-    words = (arr.reshape(-1, 4).astype(np.uint32)
-             << (np.arange(4, dtype=np.uint32) * 8)).sum(axis=1,
-                                                         dtype=np.uint32)
-    return int(np.bitwise_xor.reduce(words)) if words.size else 0
-
-
-def debug_checksums(tag: str, **buffers) -> None:
-    if not debug_enabled():
-        return
-    parts = [f"{k} size={len(bytes(v))} checksum={xor_checksum(v):08x}"
-             for k, v in buffers.items()]
-    print(f"vbz debug: {tag}: " + " | ".join(parts), file=sys.stderr)
 
 
 @contextlib.contextmanager
@@ -75,6 +53,164 @@ def annotate(name: str):
         if torch.cuda.is_available():
             stack.enter_context(torch.cuda.nvtx.range(name))
         yield
+
+
+# ---------------------------------------------------------------------------
+# The program's own spans
+#
+# Each host layer opens a span where its work happens, named by layer:
+# ``api.*`` (the public calls), ``zstd.*`` (the api's zstd stage),
+# ``backend.*`` (``TorchSvbBackend``) and ``plane.*`` (the wire-format
+# plane). A public call opens the root of its spans; every span under it,
+# on its thread or on a zstd pool thread, carries the root's id as its call.
+# The recorder is off by default: then :func:`span` and :func:`call` check
+# one flag and hand back one shared inert context.
+# ---------------------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    """One span: ``start`` and ``end`` on ``time.perf_counter_ns``; the
+    thread's ident; its own id, the id of the span it lies in (0 for none)
+    and of its public call's root (0 outside any call); the bytes it moved
+    or checked (0 where it counts none)."""
+
+    name: str
+    start: int
+    end: int
+    thread: int
+    id: int
+    parent: int
+    call: int
+    nbytes: int
+
+
+class _Off:
+    """The span of a recorder that is off: counts nothing and tests
+    false."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self):
+        return False
+
+    def add(self, nbytes: int) -> None:
+        pass
+
+
+_OFF = _Off()
+_on = False
+# A Span's fields a record; list.append and list.copy hold the interpreter
+# lock, so threads need no other.
+_records: list[tuple] = []
+_ids = itertools.count(1)
+_local = threading.local()  # .stack: (id, call) of each open span
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Live:
+    __slots__ = ("name", "nbytes", "root", "stack", "start", "id", "parent",
+                 "call")
+
+    def __init__(self, name: str, nbytes: int, root: bool):
+        self.name, self.nbytes, self.root = name, nbytes, root
+
+    def __enter__(self):
+        stack = self.stack = _stack()
+        self.parent, self.call = stack[-1] if stack else (0, 0)
+        self.id = next(_ids)
+        if self.root:
+            self.call = self.id
+        stack.append((self.id, self.call))
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self.stack.pop()
+        if _on:
+            _records.append((self.name, self.start, end,
+                             threading.get_ident(), self.id, self.parent,
+                             self.call, self.nbytes))
+        return False
+
+    def add(self, nbytes: int) -> None:
+        """Count ``nbytes`` more on this span."""
+        self.nbytes += nbytes
+
+
+def span(name: str, nbytes: int = 0):
+    """A span of ``name`` for a ``with`` block, counting ``nbytes`` (more
+    with ``.add``); an inert, false context while the recorder is off."""
+    if not _on:
+        return _OFF
+    return _Live(name, nbytes, False)
+
+
+def call(name: str):
+    """The root span of a public call: a new call where this thread has no
+    open span, else inert, so that a public function called by another
+    opens nothing."""
+    if not _on or _stack():
+        return _OFF
+    return _Live(name, 0, True)
+
+
+def carry(fn):
+    """``fn`` for a pool thread: its spans lie under the calling thread's
+    open span and carry its call. ``fn`` itself when nothing is open."""
+    if not _on or not _stack():
+        return fn
+    top = _stack()[-1]
+
+    def carried(*args, **kwargs):
+        saved = _stack()
+        _local.stack = [top]
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _local.stack = saved
+    return carried
+
+
+def start() -> None:
+    """Turn the recorder on, with no records."""
+    global _on
+    _records.clear()
+    _on = True
+
+
+def stop() -> None:
+    """Turn the recorder off; the records stay until the next start."""
+    global _on
+    _on = False
+
+
+@contextlib.contextmanager
+def recording():
+    """The recorder on for the body of the block; :func:`spans` after it
+    reads what the block recorded."""
+    start()
+    try:
+        yield
+    finally:
+        stop()
+
+
+def spans() -> list[Span]:
+    """The records so far, in the order the spans ended."""
+    return [Span._make(r) for r in _records.copy()]
 
 
 # About 100 us at the H100's clocks: more than the host takes to enqueue
