@@ -40,7 +40,7 @@ from ..errors import (
     VBZ_STREAMVBYTE_STREAM_ERROR,
     VbzError,
 )
-from ..ops import scalar, svb_v1, svb_w2, svb_w4
+from ..ops import svb_v1, svb_w2, svb_w4
 from ..utils import profiling
 
 _SIGNED_FOR_SIZE = {1: np.int8, 2: np.int16, 4: np.int32}
@@ -92,28 +92,49 @@ def _is_empty(buf: np.ndarray, count: int) -> bool:
     return False
 
 
-_V1_NIBBLES = np.array([0, 1, 2, 4], np.int64)      # v1 nibbles per code
-_W4_EXTRA_BYTES = np.array([0, 1, 2, 3], np.int64)  # v0 bytes per code - 1
+def _pair_table(weights) -> np.ndarray:
+    """Sum of ``weights[code]`` over the eight codes of each key-byte pair,
+    indexed by the pair read as one uint16. An index below 256 is one byte
+    whose partner is 0, so the same table serves a stream's odd last byte.
+    int64, so that a lookup's result is summed without a cast."""
+    byte = np.arange(256)
+    per_byte = sum(np.asarray(weights, np.int64)[(byte >> s) & 3]
+                   for s in (0, 2, 4, 6))
+    return np.add.outer(per_byte, per_byte).ravel()
+
+
+_CODE_SUM = _pair_table([0, 1, 2, 3])     # v0: data bytes a value, less 1
+_V1_NIBBLE_SUM = _pair_table([0, 1, 2, 4])  # v1: data nibbles a value
 
 
 def _check_stream(buf: np.ndarray, count: int, kind: str) -> int:
     """Validate a non-empty stream the way the reference decoder does
     (``streamvbyte_validate_stream`` and, for v1,
-    ``streamvbyte_validate_stream_half``); returns its key length."""
+    ``streamvbyte_validate_stream_half``); returns its key length.
+
+    Reads the key bytes only: W2's codes of 2 and 3 are those with their
+    high bit set, the codes past ``count`` live in the last key byte, and
+    the data length is one table lookup a key-byte pair, summed."""
+    if count < 0:  # no stream's length matches fewer than zero values
+        raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR, "stream length mismatch")
     key_len = (count + 3) // 4
     if buf.size < key_len:
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR, "stream too short")
-    codes = scalar.unpack_keys(buf[:key_len], 4 * key_len)
-    per_code = np.bincount(codes[:count], minlength=4)  # values per code
-    if kind == "w2" and per_code[2:].any():
+    keys = np.ascontiguousarray(buf[:key_len])
+    last = int(keys[-1])
+    live = (1 << 2 * (count % 4 or 4)) - 1  # the last key byte's live codes
+    if kind == "w2" and (int(np.bitwise_or.reduce(keys[:-1]))
+                         | last & live) & 0xAA:
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR, "invalid code for width")
-    if (codes[count:] != 0).any():
+    if last & ~live:
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR,
                        "nonzero trailing key bits")
-    if kind == "v1":
-        data_len = (int(per_code @ _V1_NIBBLES) + 1) // 2
-    else:
-        data_len = count + int(per_code @ _W4_EXTRA_BYTES)
+    table = _V1_NIBBLE_SUM if kind == "v1" else _CODE_SUM
+    even = key_len & ~1
+    # mode="wrap": every uint16 indexes the table, so no bounds check
+    total = int(np.take(table, keys[:even].view(np.uint16), mode="wrap")
+                .sum()) + (int(table[last]) if key_len & 1 else 0)
+    data_len = (total + 1) // 2 if kind == "v1" else count + total
     if key_len + data_len != buf.size:
         raise VbzError(VBZ_STREAMVBYTE_STREAM_ERROR, "stream length mismatch")
     return key_len
