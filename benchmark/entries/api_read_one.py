@@ -49,7 +49,6 @@ class Entry:
                 not (o.dtype == np.int16 and np.array_equal(o, truth[i]))
                 for i, o in zip(idx, outs))
         wrong = malformed.refused_wrong(
-            lambda frame: self.program(frame, np.int16), self.cell,
-            batched=False)
+            lambda frame: self.program(frame, np.int16), self.cell)
         return {"reads_differing": (differing, 0),
                 "malformed_not_refused": (wrong, 0)}

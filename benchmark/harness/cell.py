@@ -1,8 +1,10 @@
 """A cell as one run sees it, and the files it is made of.
 
 ``BENCHMARK.json`` names a cell's configuration and traffic mix; the
-configuration is ``configs/<name>.json``, the mix ``traffic/<name>.json``,
-the mix's entry module ``entries/<entry>.py``, and each metric's reader
+configuration is ``configs/<name>.json`` (its read set's length
+distribution ``lengths/<kind>.py``, ``reads.multiset``), the mix
+``traffic/<name>.json``, the mix's entry module ``entries/<entry>.py``, and
+each metric's reader
 ``metrics/<metric>.py``, or for a metric split by the end-to-end metric it
 moves (``<quantity>.<part>``), ``metrics/<quantity>.py`` where the parts
 read alike. Nothing here names a cell.

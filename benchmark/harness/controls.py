@@ -2,7 +2,7 @@
 configuration's guarantees broken, the step a later change might be
 tempted to take. Each check must read the control as not correct.
 
-- the read entries: the reference decoder without the stream validation
+- the read entry: the reference decoder without the stream validation
   that takes most of the backend's decode;
 - the write entry: the reference encoder at libzstd's stock level 1 in place
   of the stated parameters (a cheaper setting that changes the frames);
@@ -18,16 +18,6 @@ from . import reference
 
 STOCK_LEVEL_1 = {"compressionLevel": 1, "contentSizeFlag": 1,
                  "checksumFlag": 0}
-
-
-def api_read_batch(cell):
-    level = cell.config["options"][3]
-
-    def decode(frames, options):
-        return [reference.decode_frame(f, level, cell.device,
-                                       validating=False).tobytes()
-                for f in frames]
-    return decode
 
 
 def api_read_one(cell):

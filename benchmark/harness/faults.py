@@ -8,8 +8,8 @@ not correct.
   undecoded (zeros); the cells that encode take one read a call.
 
 Both replace the W2 pair in the backend's routing table
-(``models.codec._KINDS``), which the batch API, ``api.decompress`` and the
-plane all reach. Cells of one read a call have no half batch to leave out.
+(``models.codec._KINDS``), which ``api.decompress``, ``api.compress`` and
+the plane reach. Cells of one read a call have no half batch to leave out.
 """
 
 from __future__ import annotations

@@ -52,20 +52,13 @@ def cases(cell) -> list[tuple[str, bytes, int]]:
     return out
 
 
-def refused_wrong(decode, cell, batched: bool) -> int:
-    """How many cases ``decode`` fails to refuse with the reference's code
-    (their names go to standard error). ``batched``: each case rides in call
-    0's batch, at a place drawn from the seed; else alone."""
-    rng = np.random.default_rng(cell.seed + 1)
+def refused_wrong(decode, cell) -> int:
+    """How many cases ``decode`` fails to refuse with the reference's code,
+    each frame alone (their names go to standard error)."""
     wrong = []
     for name, frame, code in cases(cell):
-        if batched:
-            batch = [cell.frames[i] for i in cell.batch(0)]
-            batch[int(rng.integers(len(batch)))] = frame
-        else:
-            batch = frame
         try:
-            decode(batch)
+            decode(frame)
         except Exception as exc:  # the program's VbzError, or the control's
             if getattr(exc, "code", None) == code:
                 continue

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import zstd
+from . import reads, zstd
 
 # vbz/vbz.h: errors at the top of the uint32 range.
 VBZ_ZSTD_ERROR = 2**32 - 1
@@ -63,37 +63,59 @@ def zigzag16(x: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
     return ((d << 1) & 0xFFFF) ^ ((d >> 15) * 0xFFFF)
 
 
-def encode(values: torch.Tensor, starts: np.ndarray,
-           lengths: np.ndarray) -> Streams:
-    """The v0 zig-zag int16 stream of every read of a flat set."""
-    device = values.device
-    R = len(lengths)
-    lens = torch.from_numpy(lengths).to(device)
-    st = torch.from_numpy(starts).to(device)
-    read_of = torch.repeat_interleave(torch.arange(R, device=device), lens)
-    first = torch.zeros(values.numel(), dtype=torch.bool, device=device)
+def _piece_codes(values: torch.Tensor, lens: torch.Tensor):
+    """The zig-zag values and codes (1: two bytes) of reads laid end to end
+    in ``values``, ``lens`` samples each; each value's read and its read's
+    start in ``values``."""
+    R = len(lens)
+    read_of = torch.repeat_interleave(torch.arange(R, device=lens.device),
+                                      lens)
+    st = torch.cumsum(lens, 0) - lens
+    first = torch.zeros(values.numel(), dtype=torch.bool, device=lens.device)
     first[st[lens > 0]] = True
     v = zigzag16(values, first)
-    code = (v > 0xFF).to(torch.int64)
-    two = torch.zeros(R, dtype=torch.int64, device=device)
-    two.index_add_(0, read_of, code)
+    return v, (v > 0xFF).to(torch.int64), read_of, st
+
+
+def encode(values: torch.Tensor, starts: np.ndarray, lengths: np.ndarray,
+           piece: int = reads.PIECE) -> Streams:
+    """The v0 zig-zag int16 stream of every read of a flat set (reads end
+    to end in their order), worked out in pieces of whole reads of at most
+    ``piece`` samples (a longer read alone) and written into one flat
+    buffer: the same bytes, starts and lengths for any ``piece``."""
+    device = values.device
+    parts = [(r0, r1, int(starts[r0]), int(starts[r1 - 1] + lengths[r1 - 1]))
+             for r0, r1 in reads.pieces(lengths, piece)]
+    lens = torch.from_numpy(lengths).to(device)
+    two = torch.zeros(len(lengths), dtype=torch.int64, device=device)
+    for r0, r1, a, b in parts:
+        _, code, read_of, _ = _piece_codes(values[a:b], lens[r0:r1])
+        two[r0:r1].index_add_(0, read_of, code)
     key_lens = (lens + 3) // 4
     stream_lens = key_lens + lens + two
     s_start = torch.cumsum(stream_lens, 0) - stream_lens
-    p = torch.arange(values.numel(), device=device) - st[read_of]
-    buf = torch.zeros(int(stream_lens.sum()), dtype=torch.int64,
-                      device=device)
-    buf.index_add_(0, s_start[read_of] + p // 4, code << (2 * (p % 4)))
-    sizes = 1 + code
-    ends = torch.cumsum(sizes, 0)
-    base = (ends - sizes)[st.clamp(max=max(values.numel() - 1, 0))]
-    off = ends - sizes - base[read_of]
-    dpos = s_start[read_of] + key_lens[read_of] + off
-    buf[dpos] = (v & 0xFF).to(torch.int64)
-    hi = code.bool()
-    buf[dpos[hi] + 1] = (v[hi] >> 8).to(torch.int64)
-    return Streams(flat=buf.to(torch.uint8), starts=s_start.cpu().numpy(),
-                   lengths=stream_lens.cpu().numpy())
+    out = Streams(flat=torch.empty(int(stream_lens.sum()), dtype=torch.uint8,
+                                   device=device),
+                  starts=s_start.cpu().numpy(),
+                  lengths=stream_lens.cpu().numpy())
+    for r0, r1, a, b in parts:
+        v, code, read_of, st = _piece_codes(values[a:b], lens[r0:r1])
+        at = s_start[r0:r1] - s_start[r0]
+        p = torch.arange(b - a, device=device) - st[read_of]
+        s0 = int(out.starts[r0])
+        s1 = int(out.starts[r1 - 1] + out.lengths[r1 - 1])
+        buf = torch.zeros(s1 - s0, dtype=torch.int64, device=device)
+        buf.index_add_(0, at[read_of] + p // 4, code << (2 * (p % 4)))
+        sizes = 1 + code
+        ends = torch.cumsum(sizes, 0)
+        base = (ends - sizes)[st.clamp(max=max(b - a - 1, 0))]
+        off = ends - sizes - base[read_of]
+        dpos = at[read_of] + key_lens[r0:r1][read_of] + off
+        buf[dpos] = (v & 0xFF).to(torch.int64)
+        hi = code.bool()
+        buf[dpos[hi] + 1] = (v[hi] >> 8).to(torch.int64)
+        out.flat[s0:s1] = buf
+    return out
 
 
 def key_codes(keys: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ import sys
 from benchmark.harness import cell as cell_mod
 
 ROOT = cell_mod.ROOT
-ARGS = ["--workload", "fast5_zstd1.read_batch", "--seed", "1",
+ARGS = ["--workload", "fast5_zstd1.read_per_read", "--seed", "1",
         "--seconds", "1", "--trace", "0"]
 
 
@@ -50,10 +50,10 @@ for path in glob.glob("benchmark/entries/*.py") + glob.glob(
     cell.load_module(cell.Path(path))
 from vbz_compression_tpu_torch import api
 api._zstandard = lambda: None
-runner.run("fast5_zstd1.read_batch", 1, 0.1, True, "cpu",
+runner.run("fast5_zstd1.read_per_read", 1, 0.1, True, "cpu",
            config_override={"reads": {"count": 4, "shortest": 100,
                                       "longest": 900}},
-           traffic_override={"reads_per_call": 2, "sample_calls": 2,
+           traffic_override={"reads_per_call": 1, "sample_calls": 2,
                              "warmup_calls": 1})
 print(json.dumps(sorted(m for m in sys.modules if m == "jax"
       or m.startswith("jax.") or m == "vbz_compression_tpu"
