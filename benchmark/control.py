@@ -42,11 +42,12 @@ def main(argv=None) -> int:
     for mode in args.mode:
         for seed in args.seeds:
             program, planted = None, contextlib.nullcontext()
+            c = cell_mod.Cell.load(args.workload, seed, device)
+            entry = c.traffic["entry"]
             if mode == "control":
-                c = cell_mod.Cell.load(args.workload, seed, device)
-                program = controls.for_entry(c.traffic["entry"], c)
+                program = controls.for_entry(entry, c)
             elif mode in faults.FAULTS:
-                planted = faults.planted(mode)
+                planted = faults.planted(mode, entry)
             elif mode != "program":
                 raise SystemExit(f"unknown mode {mode!r}")
             t0 = time.perf_counter()

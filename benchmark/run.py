@@ -9,7 +9,9 @@ JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
 cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
 ``device``, with ``--trace 1`` a ``breakdown``, and last ``checks``: each
 number the check compared, with its limit. The checks also end standard
-error, one a line. Without a CUDA card the run fails and prints no result.
+error, one a line. Without a CUDA card the run fails and prints no result;
+so does a run that has loaded JAX or the JAX package by the time its
+window has closed.
 """
 
 from __future__ import annotations
@@ -25,6 +27,16 @@ from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+# Top-level module names the measured process may not hold: the port is
+# measured alone.
+FORBIDDEN = {"flax", "jax", "jaxlib", "vbz_compression_tpu"}
+
+
+def forbidden_loaded(modules) -> list[str]:
+    """The names of ``FORBIDDEN`` that are the top-level name (compared
+    whole) of one of ``modules``."""
+    return sorted({m.split(".")[0] for m in modules} & FORBIDDEN)
 
 
 def main(argv=None) -> int:
@@ -55,6 +67,11 @@ def main(argv=None) -> int:
     result = runner.run(args.workload, args.seed, args.seconds,
                         bool(args.trace), "cuda", started=STARTED,
                         imported=imported)
+    loaded = forbidden_loaded(list(sys.modules))
+    if loaded:
+        print(f"the run loaded {', '.join(loaded)}; the benchmark measures "
+              "the port alone", file=sys.stderr)
+        return 3
     for name, check in result["checks"].items():
         print(f"check {name} {check['value']} limit {check['limit']}",
               file=sys.stderr)

@@ -77,7 +77,9 @@ def test_harness_names_no_cell():
     cells = [w["name"] for w in BENCH["workloads"]]
     files = [cell_mod.BENCH / "run.py", cell_mod.BENCH / "control.py",
              *(cell_mod.BENCH / "harness").glob("*.py"),
-             *(cell_mod.BENCH / "entries").glob("*.py")]
+             *(cell_mod.BENCH / "entries").glob("*.py"),
+             *(cell_mod.BENCH / "controls").glob("*.py"),
+             *(cell_mod.BENCH / "faults").glob("*.py")]
     for path in files:
         text = path.read_text()
         assert not any(c in text for c in cells), path

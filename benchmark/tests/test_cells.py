@@ -1,7 +1,11 @@
 """Every cell of BENCHMARK.json at a tiny size on the CPU: the program's run
-is correct, and the control and each planted fault are not."""
+is correct, and the control and each planted fault are not; and so for a
+cell added as new files only."""
 
+import contextlib
 import json
+import shutil
+from pathlib import Path
 
 import pytest
 
@@ -67,6 +71,57 @@ FAULT_CASES = [(w, f) for w in CELLS for f in faults.FAULTS
 
 @pytest.mark.parametrize("workload,fault", FAULT_CASES)
 def test_planted_fault_is_not_correct(workload, fault):
-    with faults.planted(fault):
+    with faults.planted(fault, traffic_of(workload)["entry"]):
         out = tiny_run(workload)
     assert not out["correct"], out["checks"]
+
+
+def test_an_entry_without_a_control_file_names_the_path():
+    cell = cell_mod.Cell.load(CELLS[0], 0, "cpu")
+    with pytest.raises(FileNotFoundError, match="controls/no_such_entry.py"):
+        controls.for_entry("no_such_entry", cell)
+
+
+# A throwaway cell whose program decodes through a stand-in for a ragged
+# plane (``added_entry/stand_in_ragged_plane.py``), not the backend's W2
+# pair: its entry, traffic, control and fault site are the files under
+# ``added_entry/benchmark``, new to the benchmark, and ``BENCHMARK.json``
+# gains the cell and names it in the metric it reports.
+ADDED = Path(__file__).parent / "added_entry"
+ADDED_CELL = "resident_zstd0.ragged_decode"
+
+
+@pytest.fixture
+def added_cell(tmp_path, monkeypatch):
+    new = [p.relative_to(ADDED / "benchmark")
+           for p in (ADDED / "benchmark").rglob("*") if p.is_file()]
+    assert not any((cell_mod.BENCH / p).exists() for p in new)
+    shutil.copytree(cell_mod.BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copytree(ADDED / "benchmark", tmp_path / "benchmark",
+                    dirs_exist_ok=True)
+    bench = json.loads((cell_mod.ROOT / "BENCHMARK.json").read_text())
+    bench["workloads"].append({
+        "name": ADDED_CELL, "config": "resident_zstd0",
+        "traffic": "ragged_decode", "chips": 1,
+        "why": "a stand-in for a ragged plane"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "resident_decode_gb_s":
+            m["workloads"].append(ADDED_CELL)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    monkeypatch.setattr(cell_mod, "ROOT", tmp_path)
+    monkeypatch.setattr(cell_mod, "BENCH", tmp_path / "benchmark")
+    monkeypatch.syspath_prepend(str(ADDED))
+
+
+@pytest.mark.parametrize("mode", ["program", "control", *faults.FAULTS])
+def test_an_entry_added_as_files_only(added_cell, mode):
+    cell = cell_mod.Cell.load(ADDED_CELL, 0, "cpu")
+    entry = cell.traffic["entry"]
+    program = controls.for_entry(entry, cell) if mode == "control" else None
+    planted = faults.planted(mode, entry) if mode in faults.FAULTS \
+        else contextlib.nullcontext()
+    with planted:
+        out = tiny_run(ADDED_CELL, program=program)
+    assert out["correct"] == (mode == "program"), out["checks"]
+    assert set(out["metrics"]) == {"setup_s", "resident_decode_gb_s"}

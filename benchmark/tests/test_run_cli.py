@@ -1,5 +1,6 @@
 """``run.py`` fails, and prints no result, without a card or without the
-program; no module of the benchmark loads JAX or the JAX package."""
+program, and tells a run that loaded JAX or the JAX package; no module of
+the benchmark loads JAX or the JAX package."""
 
 import json
 import os
@@ -7,6 +8,9 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
+from benchmark import run
 from benchmark.harness import cell as cell_mod
 
 ROOT = cell_mod.ROOT
@@ -66,3 +70,15 @@ def test_no_module_loads_jax_or_the_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr
     assert json.loads(p.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("modules,found", [
+    (["os", "torch", "vbz_compression_tpu_torch.api", "jax_like"], []),
+    (["jax.numpy", "torch"], ["jax"]),
+    (["jaxlib"], ["jaxlib"]),
+    (["flax.linen"], ["flax"]),
+    (["vbz_compression_tpu.api", "vbz_compression_tpu_torch"],
+     ["vbz_compression_tpu"]),
+])
+def test_forbidden_modules_by_whole_top_level_name(modules, found):
+    assert run.forbidden_loaded(modules) == found
