@@ -18,7 +18,11 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      extremes, zz8 rows, ragged row lengths, a batch of unlike rows, and
      the look-back cases: lengths on tile edges, all-code-0 and all-code-1
      rows, data rows cut short, views at storage offsets off the 16-byte
-     alignment, 20 repeated calls giving identical bytes;
+     alignment, 20 repeated calls giving identical bytes; D's instance on
+     the wire plane's v0 stream rows in place (decode_w2_streams) at the
+     resident cell's shape, [128, 450,000] into [128, 200,000], values and
+     ok against its plain version on the same card tensors, with stream
+     lengths moved by +-1 and random rows, at M and M - 3, then timed;
      E4/D4 (W4) per flavor on [4, 4M] signal-like and uniform content, the
      code boundaries, the 32-bit wrap, ragged lengths and unlike rows, and
      the look-back cases of both (signals.w4_tile_cases per flavor: lengths
@@ -68,7 +72,8 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      the batch API on the card; (b) the data-parallel plane
      (parallel.sharded) in a world-1 NCCL group in this process on the
      largest bucket: gathered lengths equal to the local ones, totals their
-     sums, every ok true, the bytes the oracle's, the rows round-tripped;
+     sums, every ok true, the bytes the oracle's, the rows round-tripped,
+     the streams decoded by D in place (w2_decode_streams launched);
      (c) two tools.multihost_smoke processes on the one card, joined by
      gloo, over the pseudo-reads split into two in-memory files (which need
      no h5py; fast5 files and fast5vbz are checked by the CPU tests):
@@ -225,9 +230,10 @@ class Port:
         from vbz_compression_tpu_torch import (api, bench, native_backend,
                                                signals)
         from vbz_compression_tpu_torch.models import codec
-        from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1,
-                                                   svb_w2, svb_w4, zstd_huff,
-                                                   zstd_match, zstd_seq)
+        from vbz_compression_tpu_torch.ops import (_build, _rows, probes,
+                                                   svb_v1, svb_w2, svb_w4,
+                                                   zstd_huff, zstd_match,
+                                                   zstd_seq)
         from vbz_compression_tpu_torch.parallel import multihost, sharded
         from vbz_compression_tpu_torch.tools import (capability_probe,
                                                      kernel_times)
@@ -238,6 +244,7 @@ class Port:
         self.torch, self.pkg, self.api, self.signals = torch, pkg, api, signals
         self.codec, self.multihost, self.sharded = codec, multihost, sharded
         self.build, self.bench, self.probe = _build, bench, capability_probe
+        self.rows = _rows
         self.times = kernel_times
         self.probes, self.profiling, self.roofline = probes, profiling, roofline
         self.match, self.zstd_seq, self.zstd_huff = (zstd_match, zstd_seq,
@@ -258,6 +265,7 @@ class Port:
         for m in self.mods.values():
             m.ENCODE_LAUNCHES = 0
             m.DECODE_LAUNCHES = 0
+        self.mods["w2"].DECODE_STREAM_LAUNCHES = 0
         self.roofline.COPY_LAUNCHES = 0
         for key in self.match.LAUNCHES:
             self.match.LAUNCHES[key] = 0
@@ -270,6 +278,7 @@ class Port:
         for pair, m in self.mods.items():
             e_name, d_name = PAIRS[pair][0]
             out[e_name], out[d_name] = m.ENCODE_LAUNCHES, m.DECODE_LAUNCHES
+        out["w2_decode_streams"] = self.mods["w2"].DECODE_STREAM_LAUNCHES
         out["copy"] = self.roofline.COPY_LAUNCHES
         out.update(self.match.LAUNCHES)
         out.update(self.probes.LAUNCHES)
@@ -489,6 +498,99 @@ def check_w2_lookback(port: Port, tile: int, rows: np.ndarray) -> None:
             raise SystemExit("w2: a repeated call gave other bytes")
     print(f"  w2 repeats: 20 calls of E and D on {list(rows.shape)} give "
           "identical bytes")
+
+
+# The resident cell's calls (benchmark/entries/plane_decode.py): 128 reads
+# of 30,000-200,000 samples a call, each a row of M = W/4 + 2W stream bytes.
+STREAM_B, STREAM_W = 128, 200_000
+PLANE_DECODE = "vbz_compression_tpu/parallel/sharded.py:45"
+
+
+def check_w2_streams(port: Port, tier_rows: dict) -> dict:
+    """D's in-place instance (decode_w2_streams) at the resident cell's
+    shape, [128, M = 450,000] stream rows into [128, 200,000]: against its
+    plain version on the same card tensors, values and ok bit for bit, with
+    stream lengths moved by +-1 and rows of random bytes (codes 2 and 3,
+    data ends past M), on rows of M and of M - 3 bytes (key rows and data
+    starts off every alignment); then timed on the rows as encoded, beside
+    the plain version and the bound of the bytes it must move."""
+    torch, w2, rows = port.torch, port.mods["w2"], port.rows
+    B_S, W = STREAM_B, STREAM_W
+    M = W // 4 + 2 * W
+    rng = np.random.default_rng(23)
+    lens = rng.integers(30_000, W + 1, B_S).astype(np.int32)
+    lens[:8] = [W, 0, 1, 7, 4095, 4097, 30_000, W - 1]
+    lens[10:12] = W  # the random rows: data ends past M
+    flat = np.concatenate([tier_rows["realistic"].ravel(),
+                           tier_rows["clean"].ravel()])[:B_S * W]
+    x = torch.from_numpy(flat.reshape(B_S, W)).to(DEVICE)
+    n = torch.from_numpy(lens).to(DEVICE)
+    streams, slen, _ = port.sharded.batch_encode_sharded(x, n)
+    if tuple(streams.shape) != (B_S, M):
+        raise SystemExit(f"plane streams {tuple(streams.shape)}, not "
+                         f"{(B_S, M)}")
+    as_encoded = streams.clone(), slen.clone()
+    bad = [8, 9, 11]  # rows whose stream length is not their keys' data end
+    slen[8] += 1
+    slen[9] -= 1
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    streams[10:12] = torch.randint(0, 256, (2, M), dtype=torch.uint8,
+                                   device=DEVICE, generator=gen)
+    keys, _, kl = rows.stream_sections(streams[10:12], n[10:12], W)
+    codes = rows.unpack_keys(keys)
+    live = rows.valid_mask(n[10:12], W)
+    ends = kl + ((codes + 1) * live).sum(dim=1)
+    if not bool(((codes >= 2) & live).any()) or not bool((ends > M).all()):
+        raise SystemExit("random stream rows: no code 2 or 3, or a data end "
+                         "inside the row")
+    slen[10:12] = (ends + torch.tensor([0, 1], device=DEVICE)).to(slen.dtype)
+    want_ok = torch.ones(B_S, dtype=torch.bool, device=DEVICE)
+    want_ok[bad] = False
+    good = want_ok.clone()
+    good[10] = False
+    want_x = torch.where(torch.arange(W, device=DEVICE)[None] < n[:, None],
+                         x, 0)
+    err = 0
+    for width in (M, M - 3):
+        s = streams[:, :width].contiguous()
+        before = (w2.DECODE_STREAM_LAUNCHES, w2.DECODE_LAUNCHES)
+        out, ok = w2.decode_w2_streams(s, n, slen, W, "zz16")
+        launched = (w2.DECODE_STREAM_LAUNCHES - before[0],
+                    w2.DECODE_LAUNCHES - before[1])
+        p_out, p_ok = w2.decode_w2_streams_plain(s, n, slen, W, "zz16")
+        err = max(err, int((out.long() - p_out.long()).abs().max()))
+        same = (torch.equal(out, p_out) and torch.equal(ok, p_ok)
+                and torch.equal(ok, want_ok)
+                and torch.equal(out[good], want_x[good]))
+        torch.cuda.synchronize()
+        print(f"  w2 streams [{B_S}, {width}] -> [{B_S}, {W}]: values and "
+              f"ok {'equal' if same else 'DIFFER FROM'} plain, rows {bad} "
+              f"not ok, {launched[0]} launch of the streams instance, "
+              f"{launched[1]} of D on sections")
+        if not same or err or launched != (1, 0):
+            raise SystemExit(f"w2 streams on rows of {width} bytes: kernel "
+                             "and plain differ, or the launches")
+    del streams, out, p_out, s
+    s, sl = as_encoded
+    prof, roof = port.profiling, port.roofline
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    nbytes = int(sl.sum()) + (4 + 4 + 1) * B_S + 2 * B_S * W
+
+    def kernel():
+        return w2.decode_w2_streams(s, n, sl, W, "zz16")
+
+    def plain():
+        return w2.decode_w2_streams_plain(s, n, sl, W, "zz16")
+
+    t = {"max_abs_err": err, "bytes": nbytes,
+         "ms": prof.cold_ms(kernel, flush, REPEATS),
+         "warm_ms": prof.warm_ms(kernel, CALLS, REPEATS),
+         "plain_ms": prof.warm_ms(plain, CALLS, REPEATS),
+         "bound_ms": roof.bound_ms(nbytes)}
+    print(f"    {t['ms']:.4f} ms cold, {t['warm_ms']:.4f} warm, plain "
+          f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.5f} ({nbytes} bytes: "
+          "the streams, counts, stream lengths and ok, the values written)")
+    return t
 
 
 def check_w4_lookback(port: Port, tile: int) -> None:
@@ -917,7 +1019,7 @@ def plane_world1(port: Port, reads) -> dict:
     finally:
         port.torch.distributed.destroy_process_group()
     port.require_launched("the plane", launches,
-                          ("w2_encode", "w2_decode"))
+                          ("w2_encode", "w2_decode", "w2_decode_streams"))
     _, _, local_len, _ = sharded.batch_encode_sharded_rows(x, lens)
     _, local_stream_lens, _ = sharded.batch_encode_sharded(x, lens)
     B, N = x.shape
@@ -1744,6 +1846,7 @@ def main() -> int:
     err = check_kernels(port, w2_cases(sig, tier_rows, tile)
                         + new_cases(port, sig))
     check_w2_lookback(port, tile, tier_rows["realistic"])
+    w2_streams = check_w2_streams(port, tier_rows)
     check_w4_lookback(port, port.build.lib("w4").vbz_w4_decode_tile())
     check_v1_lookback(port, port.build.lib("v1").vbz_v1_decode_tile())
     lap("3 kernels")
@@ -1897,6 +2000,18 @@ def main() -> int:
                 "warm_ms": head[d + "_warm_ms"],
                 "timed_on": f"{pair} {flavor} {content} [{B}, {N}], L2 "
                             "flushed before the call"})
+    t = w2_streams
+    kernels.append({
+        "name": "w2_decode_streams", "route": "cuda",
+        "source": "vbz_compression_tpu_torch/csrc/w2_codec.cu",
+        "replaces": PLANE_DECODE, "also_replaces": [],
+        "launches": launched("w2_decode_streams"),
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "warm_ms": t["warm_ms"],
+        "timed_on": f"the plane's v0 streams [{STREAM_B}, "
+                    f"{STREAM_W // 4 + 2 * STREAM_W}] into [{STREAM_B}, "
+                    f"{STREAM_W}] int16, L2 flushed before the call"})
     for name, (src, site) in AUX.items():
         t = aux[name]
         kernels.append({
@@ -1918,7 +2033,8 @@ def main() -> int:
             "warm_ms": t["warm_ms"],
             "timed_on": f"the clean tier's first chunk's payload [{t['n']}] "
                         "uint8, L2 flushed before the call"})
-    print(json.dumps({"times": times, "main_paths": runs, "aux": aux,
+    print(json.dumps({"times": times, "w2_streams": w2_streams,
+                      "main_paths": runs, "aux": aux,
                       "match": match, "match_index": match_index,
                       "native": native, "level1": level1,
                       "bench": bench_lines,

@@ -29,8 +29,9 @@ import torch
 
 from vbz_compression_tpu_torch import CompressionOptions, api, oracle, signals
 from vbz_compression_tpu_torch.models.codec import TorchSvbBackend
-from vbz_compression_tpu_torch.ops import (_build, probes, svb_v1, svb_w2,
-                                           svb_w4, zstd_match, zstd_seq)
+from vbz_compression_tpu_torch.ops import (_build, _rows, probes, svb_v1,
+                                           svb_w2, svb_w4, zstd_match,
+                                           zstd_seq)
 from vbz_compression_tpu_torch.parallel import multihost, sharded
 from vbz_compression_tpu_torch.tools import capability_probe, kernel_times
 from vbz_compression_tpu_torch.utils import roofline
@@ -597,6 +598,128 @@ def test_plane_in_world1_nccl_group_on_card(cuda_device):
     assert int(total) == int(alone[2]) == int(stream_lens.sum())
     assert bool(ok.all()) and ok.shape == (4,)
     assert int(rows_total) == int(data_len.sum()) + 4 * 8192 // 4
+
+
+# Rows of 0-7 values, about a tile and one, and whole rows of N.
+_STREAM_LENGTHS = [0, 1, 2, 3, 4, 5, 6, 7, 4095, 4096, 4097, 8191, 8192]
+_STREAM_CASES = ["as encoded", "lengths past out_n", "out_n past the rows",
+                 "M odd", "M below out_n/4", "M empty", "lengths moved",
+                 "int64 lengths", "random bytes", "no rows", "out_n 0"]
+# Cases with no tile to launch: the wrapper answers without the kernel.
+_STREAM_NO_TILE = ("no rows", "out_n 0")
+
+
+def _stream_case(name, flavor, device):
+    """(streams [b, M] u8, lengths, stream_lens, out_n) of a case for the
+    plane's in-place W2 decoder, from the plane's own encode of uniform
+    rows of N = 8192 (codes 0 and 1 mixed), cut or moved as named; or, for
+    "random bytes", keys with codes 2 and 3, whose ok total (code + 1) and
+    D's byte offsets differ, half the stream lengths that total."""
+    N = 8192
+    size = 2 if flavor == "zz16" else 1
+    rng = np.random.default_rng(59)
+    lens = np.array(_STREAM_LENGTHS, np.int32)
+    x = signals.uniform(rng, lens.size * N,
+                        np.int16 if size == 2 else np.int8).reshape(-1, N)
+    lt = torch.from_numpy(lens).to(device)
+    streams, slen, _ = sharded.batch_encode_sharded(
+        torch.from_numpy(x).to(device), lt, integer_size=size)
+    top = int(slen.max())
+    cut = {"M odd": top + 3 if top % 2 == 0 else top + 2,
+           "M below out_n/4": 1001, "M empty": 0}
+    if name in cut:
+        streams = streams[:, :cut[name]].contiguous()
+    if name == "lengths moved":
+        slen = slen + torch.from_numpy(
+            np.resize([1, -1, 0], lens.size).astype(np.int32)).to(device)
+    if name == "int64 lengths":
+        # Every third length also moved past int32, where no row is ok.
+        slen = slen.to(torch.int64) + torch.from_numpy(np.resize(
+            [1 << 32, 0, 0], lens.size)).to(device)
+    if name == "no rows":
+        streams, lt, slen = streams[:0], lt[:0], slen[:0]
+    if name == "random bytes":
+        M = 2 * N + 7
+        streams = torch.from_numpy(rng.integers(
+            0, 256, (lens.size, M), dtype=np.uint8)).to(device)
+        lens = rng.integers(0, N + 100, lens.size).astype(np.int32)
+        lt = torch.from_numpy(lens).to(device)
+        keys, _, kl = _rows.stream_sections(streams, lt, N)
+        ends = kl + ((_rows.unpack_keys(keys) + 1)
+                     * _rows.valid_mask(lt, N)).sum(dim=1)
+        assert bool(((_rows.unpack_keys(keys) >= 2)
+                     & _rows.valid_mask(lt, N)).any())
+        slen = torch.where(torch.arange(lens.size, device=device) % 2 == 0,
+                           ends, ends + 1).to(torch.int32)
+    out_n = {"lengths past out_n": 4096, "out_n past the rows": N + 4100,
+             "out_n 0": 0}.get(name, N)
+    return streams, lt, slen, out_n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["zz16", "zz8"])
+@pytest.mark.parametrize("name", _STREAM_CASES)
+def test_stream_decode_matches_composition_on_card(cuda_device, flavor,
+                                                   name):
+    """The plane's in-place W2 decoder against the composition it replaces
+    on the same card tensors (the key slice, the data gather, D on the
+    sections, the key counts behind ok) and against the plain version on
+    the CPU: values and ok bit for bit, one launch (none where there is no
+    tile), no launch of D on sections."""
+    streams, lt, slen, out_n = _stream_case(name, flavor, cuda_device)
+    keys, data, kl = _rows.stream_sections(streams, lt, out_n)
+    want = (svb_w2.decode_w2_rows(keys, data, lt, flavor),
+            _rows.stream_ok(keys, lt, kl, slen))
+    before = svb_w2.DECODE_STREAM_LAUNCHES, svb_w2.DECODE_LAUNCHES
+    out, ok = svb_w2.decode_w2_streams(streams, lt, slen, out_n, flavor)
+    assert (svb_w2.DECODE_STREAM_LAUNCHES, svb_w2.DECODE_LAUNCHES) == (
+        before[0] + (name not in _STREAM_NO_TILE), before[1])
+    assert out.dtype == want[0].dtype and ok.dtype == torch.bool
+    assert torch.equal(out, want[0]) and torch.equal(ok, want[1])
+    plain = svb_w2.decode_w2_streams(streams.cpu(), lt.cpu(), slen.cpu(),
+                                     out_n, flavor)
+    assert torch.equal(out.cpu(), plain[0]) and torch.equal(ok.cpu(),
+                                                            plain[1])
+    if name == "lengths moved":
+        assert not bool(ok[0]) and not bool(ok[1]) and bool(ok[2])
+    if name == "int64 lengths":
+        assert not bool(ok[0::3].any()) and bool(ok[1::3].all())
+    if name == "out_n 0":
+        assert out.shape == (lt.numel(), 0) and bool(ok[0])
+        assert not bool(ok[1:].any())
+    if name == "random bytes":
+        assert bool(ok[0::2].all()) and not bool(ok[1::2].any())
+
+
+@pytest.mark.cuda
+def test_plane_takes_the_in_place_decoder_on_card(cuda_device):
+    """The plane launches D in place once a call for zz16 and zz8, and never
+    for the W4 kinds, which launch D4 on the sections; every row ok and
+    round-tripped either way."""
+    N = 8192
+    lens = np.array([0, 5, 4097, N], np.int32)
+    lt = torch.from_numpy(lens).to(cuda_device)
+    for size, zigzag, in_place in ((2, True, True), (1, True, True),
+                                   (2, False, False), (4, True, False)):
+        dtype = {1: np.int8, 2: np.int16, 4: np.int32}[size]
+        x = torch.from_numpy(signals.uniform(
+            np.random.default_rng(61), lens.size * N, dtype).reshape(-1, N))
+        x = x.to(cuda_device)
+        kw = dict(integer_size=size, use_zigzag=zigzag)
+        streams, slen, _ = sharded.batch_encode_sharded(x, lt, **kw)
+        before = (svb_w2.DECODE_STREAM_LAUNCHES, svb_w2.DECODE_LAUNCHES,
+                  svb_w4.DECODE_LAUNCHES)
+        for _ in range(3):
+            out, ok = sharded.batch_decode_sharded(streams, lt, slen,
+                                                   out_n=N, **kw)
+            assert bool(ok.all())
+            assert torch.equal(out, torch.where(
+                torch.arange(N, device=cuda_device)[None] < lt[:, None],
+                x, 0))
+        after = (svb_w2.DECODE_STREAM_LAUNCHES, svb_w2.DECODE_LAUNCHES,
+                 svb_w4.DECODE_LAUNCHES)
+        assert after == ((before[0] + 3, before[1], before[2]) if in_place
+                         else (before[0], before[1], before[2] + 3))
 
 
 def _match_cases():

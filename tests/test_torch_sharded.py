@@ -279,6 +279,32 @@ def test_no_group_matches_jax(jax_ref):
     assert sharded.rank_world(None) == (0, 1)
 
 
+
+def test_plane_looks_up_its_stream_decoder_each_call(monkeypatch):
+    """The wire plane decodes zz16 and zz8 through the in-place decoder it
+    finds in ``_STREAM_DECODERS`` on the call (a fault planted there is
+    reached), and the W4 kinds without it."""
+    calls = []
+    original = sharded._STREAM_DECODERS["w2"]
+
+    def recording(*args):
+        calls.append(args[-1])
+        return original(*args)
+
+    monkeypatch.setitem(sharded._STREAM_DECODERS, "w2", recording)
+    lens = torch.tensor([0, 5, 300], dtype=torch.int32)
+    for size, zigzag in ((2, True), (1, True), (2, False), (4, True)):
+        x = torch.from_numpy(np.random.default_rng(size).integers(
+            -100, 100, (3, 512)).astype({1: np.int8, 2: np.int16,
+                                         4: np.int32}[size]))
+        kw = dict(integer_size=size, use_zigzag=zigzag)
+        streams, slen, _ = sharded.batch_encode_sharded(x, lens, **kw)
+        out, ok = sharded.batch_decode_sharded(streams, lens, slen,
+                                               out_n=512, **kw)
+        assert bool(ok.all()) and torch.equal(out, torch.where(
+            torch.arange(512)[None] < lens[:, None], x, 0))
+    assert calls == ["zz16", "zz8"]
+
 def test_dryrun_world2():
     """The dry run's three checks on two spawned gloo ranks."""
     got = dryrun.run(2, device="cpu", timeout=RANK_TIMEOUT)

@@ -20,7 +20,7 @@ from vbz_compression_tpu.ops import pallas_codec4 as pc4
 from vbz_compression_tpu.ops import pallas_codec5 as pc5
 from vbz_compression_tpu.ops import pallas_dense as pcd
 from vbz_compression_tpu.ops import scalar
-from vbz_compression_tpu_torch.ops import svb_w2
+from vbz_compression_tpu_torch.ops import _rows, svb_w2
 
 _SIZE = {"zz16": 2, "zz8": 1}
 
@@ -244,6 +244,71 @@ def test_decode_rejects_bad_arguments():
     with pytest.raises(ValueError):
         svb_w2.decode_w2_rows(keys, data, counts, "zz32")
 
+
+
+@pytest.mark.parametrize("flavor", ["zz16", "zz8"])
+def test_stream_decode_on_cpu_is_the_composition(flavor):
+    """On CPU tensors the plane's in-place decoder runs the plain version:
+    the stream sections, the plain row decode and ``ok``, on rows of the
+    oracle's v0 streams (one stream length one long, one short, a key row
+    cut by M), and launches nothing."""
+    rng = np.random.default_rng(9)
+    dtype = np.int16 if flavor == "zz16" else np.int8
+    lens = [0, 3, 17, 600, 1024]
+    M = 256 + 2 * 1024 + 5
+    streams = torch.zeros(len(lens), M, dtype=torch.uint8)
+    rows, slen = [], []
+    for b, n in enumerate(lens):
+        rows.append(rng.integers(-1000, 1000, n).astype(dtype))
+        s = scalar.svb_compress(rows[-1], _SIZE[flavor], True, 0)
+        streams[b, :len(s)] = torch.tensor(list(s), dtype=torch.uint8)
+        slen.append(len(s))
+    slen = torch.tensor(slen)
+    slen[1] += 1
+    slen[2] -= 1
+    counts = torch.tensor(lens, dtype=torch.int32)
+    before = (svb_w2.DECODE_LAUNCHES, svb_w2.DECODE_STREAM_LAUNCHES)
+    for m in (M, 200):
+        cut = streams[:, :m].contiguous()
+        out, ok = svb_w2.decode_w2_streams(cut, counts, slen, 1024, flavor)
+        keys, data, kl = _rows.stream_sections(cut, counts, 1024)
+        assert torch.equal(out, svb_w2.decode_w2_rows_plain(keys, data,
+                                                            counts, flavor))
+        assert torch.equal(ok, _rows.stream_ok(keys, counts, kl, slen))
+    # M = 200 cuts the last row's 256 key bytes (codes 1 among them), not
+    # the 150 of the row before.
+    assert ok.tolist() == [True, False, False, True, False]
+    out, ok = svb_w2.decode_w2_streams(streams, counts, slen, 1024, flavor)
+    assert ok.tolist() == [True, False, False, True, True]
+    for b, r in enumerate(rows):
+        np.testing.assert_array_equal(out[b, :r.size].numpy(), r)
+        assert not out[b, r.size:].any()
+    assert (svb_w2.DECODE_LAUNCHES,
+            svb_w2.DECODE_STREAM_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("bad", ["meta_device", "dtype", "counts_dtype",
+                                 "stream_lens_shape", "out_n", "flavor"])
+def test_stream_decode_rejects_bad_arguments(bad):
+    streams = torch.zeros(2, 40, dtype=torch.uint8)
+    counts = torch.tensor([16, 3], dtype=torch.int32)
+    slen = torch.tensor([4, 1], dtype=torch.int32)
+    out_n, flavor = 16, "zz16"
+    if bad == "meta_device":
+        streams, counts, slen = (t.to("meta") for t in (streams, counts,
+                                                        slen))
+    elif bad == "dtype":
+        streams = streams.to(torch.int8)
+    elif bad == "counts_dtype":
+        counts = counts.to(torch.int64)
+    elif bad == "stream_lens_shape":
+        slen = slen[:1]
+    elif bad == "out_n":
+        out_n = 18
+    else:
+        flavor = "none16"
+    with pytest.raises(ValueError):
+        svb_w2.decode_w2_streams(streams, counts, slen, out_n, flavor)
 
 def test_batch_rows_match_pallas3_batch():
     """test_pallas3_batch_rows_independent's batch: pallas_codec3's batched

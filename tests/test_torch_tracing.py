@@ -162,21 +162,33 @@ def test_byte_counts_of_validation_and_copies(name):
         1 if "backend.decode" in names else 2)
 
 
-def test_plane_decode_spans():
+def _plane_decode_records(**kw):
     reads = [r for r in _reads() if r.size]
     x, lens = sharded.pad_chunks(reads)
     x, lens = torch.from_numpy(x), torch.from_numpy(lens)
-    streams, slen, _ = sharded.batch_encode_sharded(x, lens)
+    streams, slen, _ = sharded.batch_encode_sharded(x, lens, **kw)
     (out, ok), recs = _record(lambda: sharded.batch_decode_sharded(
-        streams, lens, slen, out_n=x.shape[1]))
+        streams, lens, slen, out_n=x.shape[1], **kw))
     assert bool(ok.all()) and torch.equal(out, x)
-    assert [r.name for r in recs] == ["plane.layout", "plane.launch",
-                                      "plane.ok", "plane.decode"]
     root = recs[-1]
     assert root.parent == 0 and root.call == root.id
     assert all(r.parent == root.id and r.call == root.id
                and root.start <= r.start <= r.end <= root.end
                for r in recs[:-1])
+    return [r.name for r in recs]
+
+
+def test_plane_decode_spans():
+    """zz16 takes the in-place decoder, which gives ok too: no layout and
+    no key counts to enqueue."""
+    assert _plane_decode_records() == ["plane.launch", "plane.decode"]
+
+
+def test_plane_decode_spans_of_the_composition():
+    """A W4 kind (none16) cuts the sections, decodes them, and counts the
+    keys behind ok, each in its span."""
+    assert _plane_decode_records(use_zigzag=False) == [
+        "plane.layout", "plane.launch", "plane.ok", "plane.decode"]
 
 
 def test_no_record_escapes_recording():

@@ -16,7 +16,10 @@
 // Keys are [B, N/4] u8, encode data is [B, 2N] u8 (each row dense from byte
 // 0), decode data is [B, D] u8 for any D. Values at or past a row's length
 // take code 0, write no data, and decode to 0; decode never reads a byte at
-// or past D.
+// or past D. D's second instance (decode_w2_streams) reads the wire plane's
+// v0 streams [B, M] in place, each row its key bytes and then its data, and
+// also writes each row's ok, from the sum of code + 1 over its live values;
+// the two instances share the tile body and differ in its layout policy.
 //
 // What bounds them: bytes, per int16 value 2 read, 0.25 key bytes and 1-2
 // data bytes written (the reverse for D), and no arithmetic to speak of. So
@@ -206,17 +209,101 @@ __device__ __forceinline__ uint32_t add_lanes(uint32_t w, uint32_t c) {
   }
 }
 
-template <typename X, bool kAligned>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    decode_w2(const uint8_t* keys, const uint8_t* data, const int* counts,
-              X* out, StatusWord* scratch, int N, int T, int D) {
+// decode_w2's row layouts: where row b's key bytes and data section lie.
+// Sections: keys [B, N/4] and data [B, D], the row kernels' own layout
+// (decode_w2_rows).
+struct Sections {
+  static constexpr bool kInPlace = false;
+  const uint8_t* keys;
+  const uint8_t* data;
+  int D;
+  __device__ __forceinline__ const uint8_t* key_row(int b, int N) const {
+    return keys + static_cast<size_t>(b) * (N / 4);
+  }
+  // How many of a row's N values have their key byte in the row.
+  __device__ __forceinline__ int keyed(int N) const { return N; }
+  // Row b's data section of *bytes bytes, for a row of len values.
+  __device__ __forceinline__ const uint8_t* data_row(int b, int,
+                                                     uint32_t* bytes) const {
+    *bytes = static_cast<uint32_t>(D);
+    return data + static_cast<size_t>(b) * D;
+  }
+};
+
+// Streams: v0 streams [B, M], the wire plane's layout, read in place. Row b
+// holds its (len + 3) / 4 key bytes, then its data bytes: key byte j past M
+// reads 0, and the data section is the row's bytes from the key length to
+// M. This layout also checks each row as the plane's ok: the data end that
+// its keys give (the key length plus code + 1 summed over its live values,
+// so codes 2 and 3, which no W2 encoder writes, count 3 and 4 against D's 2
+// bytes) equals its stream length, and the key length fits in it.
+struct Streams {
+  static constexpr bool kInPlace = true;
+  // A row's word in the scratch after the status arrays: the tiles that
+  // have added to it (from bit kTileShift) and their sum of code + 1.
+  static constexpr int kTileShift = 40;
+  const uint8_t* streams;
+  int M;
+  const int* stream_lens;  // [B]
+  bool* ok;  // [B]
+  __device__ __forceinline__ const uint8_t* key_row(int b, int) const {
+    return streams + static_cast<size_t>(b) * M;
+  }
+  __device__ __forceinline__ int keyed(int N) const {
+    return 4LL * M < N ? 4 * M : N;
+  }
+  static __device__ __forceinline__ long long key_len(int len) {
+    return (static_cast<long long>(len) + 3) / 4;
+  }
+  __device__ __forceinline__ const uint8_t* data_row(int b, int len,
+                                                     uint32_t* bytes) const {
+    const long long kl = key_len(len) < M ? key_len(len) : M;
+    *bytes = static_cast<uint32_t>(M - kl);
+    return streams + static_cast<size_t>(b) * M + kl;
+  }
+  __device__ __forceinline__ void write_ok(int b, int len,
+                                           long long total) const {
+    const long long kl = key_len(len);
+    const long long sl = stream_lens[b];
+    ok[b] = kl + total == sl && kl <= sl;
+  }
+  // Adds a live tile's sum of code + 1 to row b's word of totals; the last
+  // of the row's live tiles to add writes the row's ok. One atomic gives
+  // both the tiles before and their sum, so no fence is needed.
+  __device__ __forceinline__ void add_tile(StatusWord* totals, int b, int len,
+                                           int count, uint32_t sum) const {
+    const StatusWord before =
+        atomicAdd(totals + b, (StatusWord{1} << kTileShift) + sum);
+    const int tiles = (count + kPassTile - 1) / kPassTile;
+    if (static_cast<int>(before >> kTileShift) == tiles - 1) {
+      write_ok(b, len,
+               static_cast<long long>(
+                   before & ((StatusWord{1} << kTileShift) - 1)) + sum);
+    }
+  }
+};
+
+// How many more than D's bytes a thread's live values count in ok's
+// code + 1: one for code 2, two for code 3.
+__device__ __forceinline__ uint32_t codes_past_bytes(uint32_t key) {
+  const uint32_t hi = (key >> 1) & 0x55555555u;
+  return __popc(hi) + __popc(hi & key);
+}
+
+// One tile of D on the rows of a layout.
+template <typename X, bool kAligned, typename Rows>
+__device__ __forceinline__ void decode_tile(const Rows& rows,
+                                            const int* counts, X* out,
+                                            StatusWord* scratch, int N,
+                                            int T) {
   __shared__ uint32_t scan[kThreads / 32];
   __shared__ uint32_t tile_off, tile_carry;
   __shared__ __align__(16) uint8_t stage[kStageBytesD];
   int b, t;
   tile_of_ticket(take_ticket(scratch), T, &b, &t);
   const int base = t * kPassTile;
-  const int count = clamp_len(counts[b], N);
+  const int len = counts[b];
+  const int count = clamp_len(len, N);
   const int i0 = base + kPerThread * threadIdx.x;
   // Two status arrays of B * T (= gridDim.x) words: offsets, then sums.
   StatusWord* offsets = scratch + kLookbackHeader + static_cast<size_t>(b) * T;
@@ -228,31 +315,45 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (threadIdx.x == 0) {
       publish_status(offsets + t, kStatusAggregate, 0u);
       publish_status(sums + t, kStatusAggregate, 0u);
+      if constexpr (Rows::kInPlace) {
+        if (t == 0) rows.write_ok(b, len, 0);  // a row of no values
+      }
     }
     return;
   }
   // Bit 2k of two: value k is live and takes 2 bytes (any nonzero code).
-  const uint32_t key =
-      load_keys(keys + static_cast<size_t>(b) * (N / 4), i0, N);
+  const uint32_t key = load_keys(rows.key_row(b, N), i0, rows.keyed(N));
   const int live = live_values(count, i0);
   const uint32_t two = (key | (key >> 1)) & 0x55555555u & live_key_mask(live);
+  uint32_t scanned = static_cast<uint32_t>(live) + __popc(two);
+  if constexpr (Rows::kInPlace) {
+    // ok's excess rides in the upper half: a tile's bytes stay below 2^16.
+    scanned += codes_past_bytes(key & live_key_mask(live)) << 16;
+  }
   uint32_t agg;
-  const uint32_t in_tile = block_exclusive_scan<kThreads>(
-      static_cast<uint32_t>(live) + __popc(two), &agg, scan);
+  uint32_t in_tile = block_exclusive_scan<kThreads>(scanned, &agg, scan);
+  if constexpr (Rows::kInPlace) {
+    if (threadIdx.x == 0) {
+      rows.add_tile(scratch + kLookbackHeader + 2 * gridDim.x, b, len, count,
+                    (agg & 0xFFFFu) + (agg >> 16));
+    }
+    in_tile &= 0xFFFFu;
+    agg &= 0xFFFFu;
+  }
   if (threadIdx.x == 0) publish_aggregate(offsets, t, agg);
   if (threadIdx.x < 32) {
     const uint32_t off = resolve_prefix(offsets, t, agg);
     if (threadIdx.x == 0) tile_off = off;
   }
   __syncthreads();
-  // The tile's span of the data row, clipped at D: in-tile byte o exists
-  // when o < avail.
+  // The tile's span of the data section, clipped at its end: in-tile byte o
+  // exists when o < avail.
   const uint32_t off = tile_off;
-  const uint32_t limit = static_cast<uint32_t>(D);
+  uint32_t limit;
+  const uint8_t* drow = rows.data_row(b, len, &limit);
   const uint32_t first = off < limit ? off : limit;
   const uint32_t end = off + agg < limit ? off + agg : limit;
   const uint32_t avail = end - first;
-  const uint8_t* drow = data + static_cast<size_t>(b) * D;
   const uintptr_t lo = reinterpret_cast<uintptr_t>(drow + first);
   move_span<true>(stage, lo, reinterpret_cast<uintptr_t>(drow + end));
   __syncthreads();
@@ -314,6 +415,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   store_words<X, kAligned>(orow, i0, N, w);
 }
 
+template <typename X, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    decode_w2(const uint8_t* keys, const uint8_t* data, const int* counts,
+              X* out, StatusWord* scratch, int N, int T, int D) {
+  decode_tile<X, kAligned>(Sections{keys, data, D}, counts, out, scratch, N,
+                           T);
+}
+
+// out is the wrapper's own allocation, so it starts on a 16-byte word.
+template <typename X>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    decode_w2_streams(Streams rows, const int* counts, X* out,
+                      StatusWord* scratch, int N, int T) {
+  decode_tile<X, true>(rows, counts, out, scratch, N, T);
+}
+
 template <typename X>
 int encode_launch(const void* x, const int* lens, uint8_t* keys,
                   uint8_t* data, int* data_len, StatusWord* scratch, int B,
@@ -340,13 +457,26 @@ int decode_launch(const uint8_t* keys, const uint8_t* data, const int* counts,
   return cudaGetLastError();
 }
 
+template <typename X>
+int decode_streams_launch(const Streams& rows, const int* counts, void* out,
+                          StatusWord* scratch, int B, int N,
+                          cudaStream_t s) {
+  const int tiles = grid_tiles(B, N);
+  if (tiles == 0 || !word_aligned<X>(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  decode_w2_streams<X><<<tiles, kThreads, 0, s>>>(
+      rows, counts, static_cast<X*>(out), scratch, N, tiles / B);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Values per tile, T = ceil(N / tile) tiles per row. The scratch of both
-// entry points is 8-byte words, zeroed before each call: 1 + B * T for
-// encode, 1 + 2 * B * T for decode.
+// Values per tile, T = ceil(N / tile) tiles per row. The scratch of every
+// entry point is 8-byte words, zeroed before each call: 1 + B * T for
+// encode, 1 + 2 * B * T for decode, 1 + 2 * B * T + B for decode_streams.
 int vbz_w2_tile() { return kPassTile; }
 
 // x: [B, N] int16 (elem_bytes 2, zz16) or int8 (elem_bytes 1, zz8);
@@ -377,6 +507,24 @@ int vbz_w2_decode(const uint8_t* keys, const uint8_t* data, const int* counts,
   }
   if (elem_bytes == 1) {
     return decode_launch<int8_t>(keys, data, counts, out, scratch, B, N, D, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// streams: [B, M] u8 v0 streams read in place, counts and stream_lens:
+// [B] i32. Writes out [B, N] int16 (elem_bytes 2) or int8 (elem_bytes 1),
+// 16-byte aligned, and ok [B] (bool).
+int vbz_w2_decode_streams(const uint8_t* streams, const int* counts,
+                          const int* stream_lens, void* out, bool* ok,
+                          StatusWord* scratch, int B, int N, int M,
+                          int elem_bytes, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const Streams rows{streams, M, stream_lens, ok};
+  if (elem_bytes == 2) {
+    return decode_streams_launch<int16_t>(rows, counts, out, scratch, B, N, s);
+  }
+  if (elem_bytes == 1) {
+    return decode_streams_launch<int8_t>(rows, counts, out, scratch, B, N, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

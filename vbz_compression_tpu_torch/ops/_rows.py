@@ -6,6 +6,7 @@ and the kernel launch."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _KEY_SHIFTS = (0, 2, 4, 6)
 MAX_B = 65535  # the kernels' grid y dimension
@@ -99,14 +100,44 @@ def row_ends(sizes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return ends - sizes, total
 
 
+def stream_sections(streams: torch.Tensor, lengths: torch.Tensor,
+                    out_n: int):
+    """The key and data sections of v0 stream rows [B, M], each row's
+    ``(lengths + 3) // 4`` key bytes and then its data bytes, as the row
+    decoders take them: ``(keys [B, out_n/4], data [B, M], key lengths
+    int64)``, keys the rows' first bytes and data their bytes from the key
+    length on, both 0 past M."""
+    M = streams.shape[1]
+    keys = F.pad(streams[:, :out_n // 4], (0, max(out_n // 4 - M, 0)))
+    kl = ((lengths + 3) // 4).to(torch.int64)
+    p = torch.arange(M, device=streams.device)
+    data = torch.gather(F.pad(streams, (0, 1)), 1,
+                        (p + kl[:, None]).clamp(max=M))
+    return keys.contiguous(), data, kl
+
+
+def stream_ok(keys: torch.Tensor, lengths: torch.Tensor, kl: torch.Tensor,
+              stream_lens: torch.Tensor) -> torch.Tensor:
+    """[B] bool: each v0 stream is well formed as ``jax_svb`` decides it:
+    the data end that its keys give (the key length plus code + 1 over the
+    row's first ``lengths`` values) is its stream length, and the key
+    section fits in it."""
+    sizes = (unpack_keys(keys) + 1) * valid_mask(lengths, 4 * keys.shape[1])
+    data_end = kl + sizes.sum(dim=1)
+    return (data_end == stream_lens) & (kl <= stream_lens)
+
+
 def lookback_scratch(tile: int, B: int, N: int, carries: int,
-                     device: torch.device) -> torch.Tensor:
+                     device: torch.device, row_words: int = 0
+                     ) -> torch.Tensor:
     """The zeroed look-back state of a one-pass kernel (``csrc/lookback.cuh``)
     on [B, N] in tiles of ``tile`` values: the ticket word, then one 8-byte
     status word per tile for each carried value (a byte offset, an un-delta
-    sum). The one fill that comes with a launch."""
+    sum), then ``row_words`` words a row. The one fill that comes with a
+    launch."""
     tiles = B * -(-N // tile)
-    return torch.zeros(1 + carries * tiles, dtype=torch.int64, device=device)
+    return torch.zeros(1 + carries * tiles + row_words * B,
+                       dtype=torch.int64, device=device)
 
 
 def launch(fn, what: str, *args) -> None:

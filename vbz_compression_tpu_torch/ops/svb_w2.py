@@ -33,13 +33,23 @@ Layouts (B rows, N values per row, N % 4 == 0):
         -> keys [B, N/4] u8, data [B, 2N] u8, data_len [B] i32
     decode_w2_rows(keys [B, N/4] u8, data [B, D] u8, counts [B] i32)
         -> [B, N] i16|i8
+    decode_w2_streams(streams [B,M] u8, counts [B] i32, stream_lens [B],
+                      out_n) -> [B, out_n] i16|i8, ok [B] bool
 Values at or past a row's length take code 0 and no data bytes, and decode
 to 0. ``data[b, data_len[b]:]`` is unspecified. Decode never reads past
 ``data``'s row, whatever the keys say.
 
+``decode_w2_streams`` takes the wire plane's layout, v0 streams of key bytes
+and then data bytes a row (``parallel.sharded``), and gives what the row
+decode gives on the sections that :func:`._rows.stream_sections` cuts from
+them, with each row's ``ok`` (:func:`._rows.stream_ok`). On the card D reads
+each row where it lies, and sums each row's code + 1 for ``ok``, so the call
+is one fill and one launch.
+
 On a CUDA tensor each function launches its kernel (and counts the launch in
-``ENCODE_LAUNCHES`` / ``DECODE_LAUNCHES``); on a CPU tensor it runs the plain
-PyTorch version in this module. Any other device raises.
+``ENCODE_LAUNCHES`` / ``DECODE_LAUNCHES`` / ``DECODE_STREAM_LAUNCHES``); on a
+CPU tensor it runs the plain PyTorch version in this module. Any other device
+raises.
 """
 
 from __future__ import annotations
@@ -53,8 +63,11 @@ FLAVOR_DTYPES = {"zz16": torch.int16, "zz8": torch.int8}
 # Kernel launches, one per wrapper call that reached the card.
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
+DECODE_STREAM_LAUNCHES = 0
 
 _MAX_N = 1 << 29   # keeps every in-row byte offset (< 2N) in an int32
+# keeps a stream row's data end (key length + 4 out_n) below 2^31 - 1
+_MAX_STREAM_N = 1 << 28
 
 
 def _dtype(flavor: str) -> torch.dtype:
@@ -169,3 +182,60 @@ def decode_w2_rows(keys: torch.Tensor, data: torch.Tensor,
     global DECODE_LAUNCHES
     DECODE_LAUNCHES += 1
     return out
+
+
+def decode_w2_streams_plain(streams: torch.Tensor, counts: torch.Tensor,
+                            stream_lens: torch.Tensor, out_n: int,
+                            flavor: str):
+    """Plain PyTorch decode of v0 stream rows (any device): the sections,
+    the plain row decode, and ``ok``; same contract as the kernel."""
+    keys, data, kl = _rows.stream_sections(streams, counts, out_n)
+    return (decode_w2_rows_plain(keys, data, counts, flavor),
+            _rows.stream_ok(keys, counts, kl, stream_lens))
+
+
+def decode_w2_streams(streams: torch.Tensor, counts: torch.Tensor,
+                      stream_lens: torch.Tensor, out_n: int, flavor: str):
+    """W2 decode of v0 stream rows [B, M], ``counts[b]`` values each into
+    [B, out_n], and each row's ``ok``; see the module docstring. Kernel D
+    on the rows in place on CUDA, the plain version on CPU."""
+    dtype = _dtype(flavor)
+    _rows.check_2d(streams, torch.uint8, "streams")
+    B, M = streams.shape
+    _rows.check_lens(counts, B, streams, "counts")
+    if tuple(stream_lens.shape) != (B,) or stream_lens.device != \
+            streams.device:
+        raise ValueError(f"stream_lens {tuple(stream_lens.shape)} on "
+                         f"{stream_lens.device} does not match streams "
+                         f"{tuple(streams.shape)} on {streams.device}")
+    if out_n % 4:
+        raise ValueError(f"out_n={out_n} is not a multiple of 4")
+    if _rows.on_cpu(streams, "W2 stream decode"):
+        return decode_w2_streams_plain(streams, counts, stream_lens, out_n,
+                                       flavor)
+    _rows.check_kernel_args(B, out_n, _MAX_STREAM_N, streams, counts)
+    if M >= 1 << 31:
+        raise ValueError(f"stream row of {M} bytes exceeds the kernel's "
+                         "int32")
+    out = torch.empty(B, out_n, dtype=dtype, device=streams.device)
+    if B == 0 or out_n == 0:
+        # No tile to launch: the keys hold no live value, so each row's data
+        # end is its key length.
+        kl = ((counts + 3) // 4).to(torch.int64)
+        return out, (kl == stream_lens) & (kl <= stream_lens)
+    if stream_lens.dtype != torch.int32:
+        # A data end stays below 2^31 - 1 (out_n <= _MAX_STREAM_N), so a
+        # length outside int32 is ok nowhere, as its clamped one.
+        stream_lens = stream_lens.clamp(-1, (1 << 31) - 1).to(torch.int32)
+    ok = torch.empty(B, dtype=torch.bool, device=streams.device)
+    from . import _build
+
+    lib = _build.lib("w2")
+    scratch = _rows.lookback_scratch(lib.vbz_w2_tile(), B, out_n, 2,
+                                     streams.device, row_words=1)
+    _rows.launch(lib.vbz_w2_decode_streams, "W2 stream decode", streams,
+                 counts, stream_lens.contiguous(), out, ok, scratch, B,
+                 out_n, M, out.element_size())
+    global DECODE_STREAM_LAUNCHES
+    DECODE_STREAM_LAUNCHES += 1
+    return out, ok

@@ -21,7 +21,10 @@ NCCL takes CUDA tensors and gloo CPU tensors, so the small tensors of the
 collectives (lengths, ``ok``, totals) move to the backend's device; the
 kernels stay on the rank's card. The per-rank codec is the backend's routing
 (:func:`..models.codec._route`): kernel E for zz16 and zz8, E4 for none16,
-none8, zz32 and none32; D and D4 back.
+none8, zz32 and none32; D and D4 back. The wire-format plane's decode of
+zz16 and zz8 takes D's instance that reads each v0 stream row in place and
+writes its ``ok`` (``svb_w2.decode_w2_streams``); the W4 kinds cut each row
+into key and data sections for D4 first.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 
 from .. import api
 from ..models import codec
-from ..ops import _rows
+from ..ops import _rows, svb_w2
 from ..utils import profiling
 
 
@@ -73,9 +76,12 @@ def _on_comm_device(t: torch.Tensor, group) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's 1-D ``t`` of ``group``, concatenated in rank order, on
-    ``t``'s device; ``t`` itself without a group."""
+    ``t``'s device (a bool ``t`` travels as uint8); ``t`` itself without a
+    group."""
     if group is None:
         return t
+    if t.dtype == torch.bool:
+        return all_gather(t.to(torch.uint8), group).bool()
     c = _on_comm_device(t, group)
     parts = [torch.empty_like(c) for _ in range(rank_world(group)[1])]
     dist.all_gather(parts, c, group=group)
@@ -134,6 +140,14 @@ def batch_encode_sharded(x: torch.Tensor, lengths: torch.Tensor, *,
             all_reduce_sum(total, group))
 
 
+# kind -> the decoder of v0 stream rows in place, ``(streams, lengths,
+# stream_lens, out_n, flavor) -> (x, ok)``: kernel D reads each row where it
+# lies and writes its ok. Looked up on every call; a kind without one (W4)
+# takes the composition of the key slice, the data gather and the row
+# decoder.
+_STREAM_DECODERS = {"w2": svb_w2.decode_w2_streams}
+
+
 def batch_decode_sharded(streams: torch.Tensor, lengths: torch.Tensor,
                          stream_lens: torch.Tensor, *, group=None,
                          integer_size: int = 2, use_zigzag: bool = True,
@@ -147,29 +161,29 @@ def batch_decode_sharded(streams: torch.Tensor, lengths: torch.Tensor,
     equals ``stream_lens[b]``, and the key section fits in it.
 
     Host spans (the enqueue, not the card's time): ``plane.decode``, the
-    root of a call, around ``plane.layout`` (the padded key slice and the
-    data gather), ``plane.launch`` (kernel D's wrapper) and ``plane.ok``
-    (the key counts behind ``ok``).
+    root of a call, around ``plane.launch`` (the decoder's wrapper). A kind
+    without an in-place decoder (``_STREAM_DECODERS``) has two more:
+    ``plane.layout`` (the padded key slice and the data gather) before it
+    and ``plane.ok`` (the key counts behind ``ok``) after it.
     """
     with profiling.call("plane.decode"):
-        _, decode, _, flavor = _codec(integer_size, use_zigzag)
+        kind, flavor = codec._route(integer_size, use_zigzag, 0)
         if out_n % 4:
             raise ValueError(f"out_n={out_n} is not a multiple of 4")
-        with profiling.span("plane.layout"):
-            M = streams.shape[1]
-            keys = F.pad(streams[:, :out_n // 4], (0, max(out_n // 4 - M, 0)))
-            kl = ((lengths + 3) // 4).to(torch.int64)
-            p = torch.arange(M, device=streams.device)
-            data = torch.gather(F.pad(streams, (0, 1)), 1,
-                                (p + kl[:, None]).clamp(max=M))
-        with profiling.span("plane.launch"):
-            out = decode(keys.contiguous(), data, lengths, flavor)
-        with profiling.span("plane.ok"):
-            sizes = (_rows.unpack_keys(keys) + 1) * _rows.valid_mask(
-                lengths, out_n)
-            data_end = kl + sizes.sum(dim=1)
-            ok = (data_end == stream_lens) & (kl <= stream_lens)
-        return out, all_gather(ok.to(torch.uint8), group).bool()
+        in_place = _STREAM_DECODERS.get(kind)
+        if in_place is not None:
+            with profiling.span("plane.launch"):
+                out, ok = in_place(streams, lengths, stream_lens, out_n,
+                                   flavor)
+        else:
+            with profiling.span("plane.layout"):
+                keys, data, kl = _rows.stream_sections(streams, lengths,
+                                                       out_n)
+            with profiling.span("plane.launch"):
+                out = codec._KINDS[kind][1](keys, data, lengths, flavor)
+            with profiling.span("plane.ok"):
+                ok = _rows.stream_ok(keys, lengths, kl, stream_lens)
+        return out, all_gather(ok, group)
 
 
 # ---------------------------------------------------------------------------

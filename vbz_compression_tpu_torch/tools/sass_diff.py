@@ -9,8 +9,9 @@ libraries (``_build.build_all()`` from each root):
 
 For each library it disassembles ``build/torch_kernels/*/libvbz_<name>.so``
 of both roots with ``cuobjdump -sass`` and compares each kernel's
-instructions, blank lines aside. The hash that names a source's anonymous
-namespace follows the source's content, so it is dropped from the names.
+instructions, blank lines and runs of blanks aside. The hash that names a
+source's anonymous namespace follows the source's content, so it is dropped
+from the names.
 Prints, per library, the kernels whose instructions are identical (and how
 many instructions they hold), those that differ (with their first
 differing lines), and those only one build has.
@@ -29,7 +30,8 @@ from vbz_compression_tpu_torch.ops import _build
 
 
 def kernels(root: str, name: str) -> dict:
-    """{kernel: its SASS lines, blank lines dropped} of one library."""
+    """{kernel: its SASS lines, blank lines dropped and runs of blanks
+    made one} of one library."""
     paths = glob.glob(os.path.join(root, "build", "torch_kernels", "*",
                                    f"libvbz_{name}.so"))
     if len(paths) != 1:
@@ -40,8 +42,8 @@ def kernels(root: str, name: str) -> dict:
                           text=True, check=True).stdout
     text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
     parts = re.split(r"\n\s*Function : (\S+)\n", text)
-    return {parts[i]: [line for line in parts[i + 1].splitlines()
-                       if line.strip()]
+    return {parts[i]: [" ".join(line.split())
+                       for line in parts[i + 1].splitlines() if line.strip()]
             for i in range(1, len(parts) - 1, 2)}
 
 
