@@ -22,7 +22,9 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      the wire plane's v0 stream rows in place (decode_w2_streams) at the
      resident cell's shape, [128, 450,000] into [128, 200,000], values and
      ok against its plain version on the same card tensors, with stream
-     lengths moved by +-1 and random rows, at M and M - 3, then timed;
+     lengths moved by +-1 and random rows, at M and M - 3, then timed,
+     with the growths of its kept look-back buffer (STREAM_SCRATCH_GROWN:
+     at most one, none in the timed calls) beside its launches;
      E4/D4 (W4) per flavor on [4, 4M] signal-like and uniform content, the
      code boundaries, the 32-bit wrap, ragged lengths and unlike rows, and
      the look-back cases of both (signals.w4_tile_cases per flavor: lengths
@@ -139,7 +141,8 @@ Phases, each of which exits nonzero on failure (each prints its seconds):
      StreamVByte stage and the zstd stage each way, compress_signals at
      levels 0 and 1 in turns, the bench's pipeline line at levels 1 and 0.
 The line before the last lists the kernels with their launches, errors,
-times and bounds; the last line is {"ok": true, "device": {...}}.
+times and bounds (w2_decode_streams also its look-back buffer's growths,
+scratch_grown); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -551,6 +554,7 @@ def check_w2_streams(port: Port, tier_rows: dict) -> dict:
     want_x = torch.where(torch.arange(W, device=DEVICE)[None] < n[:, None],
                          x, 0)
     err = 0
+    grown = w2.STREAM_SCRATCH_GROWN
     for width in (M, M - 3):
         s = streams[:, :width].contiguous()
         before = (w2.DECODE_STREAM_LAUNCHES, w2.DECODE_LAUNCHES)
@@ -566,7 +570,8 @@ def check_w2_streams(port: Port, tier_rows: dict) -> dict:
         print(f"  w2 streams [{B_S}, {width}] -> [{B_S}, {W}]: values and "
               f"ok {'equal' if same else 'DIFFER FROM'} plain, rows {bad} "
               f"not ok, {launched[0]} launch of the streams instance, "
-              f"{launched[1]} of D on sections")
+              f"{launched[1]} of D on sections, look-back buffer grown "
+              f"{w2.STREAM_SCRATCH_GROWN - grown} times so far")
         if not same or err or launched != (1, 0):
             raise SystemExit(f"w2 streams on rows of {width} bytes: kernel "
                              "and plain differ, or the launches")
@@ -582,14 +587,25 @@ def check_w2_streams(port: Port, tier_rows: dict) -> dict:
     def plain():
         return w2.decode_w2_streams_plain(s, n, sl, W, "zz16")
 
+    checked = w2.STREAM_SCRATCH_GROWN - grown
+    launches = w2.DECODE_STREAM_LAUNCHES
     t = {"max_abs_err": err, "bytes": nbytes,
          "ms": prof.cold_ms(kernel, flush, REPEATS),
          "warm_ms": prof.warm_ms(kernel, CALLS, REPEATS),
          "plain_ms": prof.warm_ms(plain, CALLS, REPEATS),
-         "bound_ms": roof.bound_ms(nbytes)}
+         "bound_ms": roof.bound_ms(nbytes),
+         "scratch_grown": w2.STREAM_SCRATCH_GROWN - grown,
+         "timed_launches": w2.DECODE_STREAM_LAUNCHES - launches}
     print(f"    {t['ms']:.4f} ms cold, {t['warm_ms']:.4f} warm, plain "
           f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.5f} ({nbytes} bytes: "
           "the streams, counts, stream lengths and ok, the values written)")
+    print(f"    look-back buffer grown {t['scratch_grown']} times over "
+          f"{t['timed_launches'] + 2} launches of the streams instance")
+    if checked > 1 or t["scratch_grown"] != checked:
+        raise SystemExit(f"w2 streams: the kept look-back buffer grew "
+                         f"{checked} times in the checks and "
+                         f"{t['scratch_grown'] - checked} in the timed calls "
+                         "of one shape")
     return t
 
 
@@ -2009,6 +2025,7 @@ def main() -> int:
         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "warm_ms": t["warm_ms"],
+        "scratch_grown": t["scratch_grown"],
         "timed_on": f"the plane's v0 streams [{STREAM_B}, "
                     f"{STREAM_W // 4 + 2 * STREAM_W}] into [{STREAM_B}, "
                     f"{STREAM_W}] int16, L2 flushed before the call"})

@@ -23,6 +23,9 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -689,6 +692,128 @@ def test_stream_decode_matches_composition_on_card(cuda_device, flavor,
         assert not bool(ok[1:].any())
     if name == "random bytes":
         assert bool(ok[0::2].all()) and not bool(ok[1::2].any())
+
+
+def _stream_want(case, flavor):
+    """The composition on the card for a stream case: the sections, D on
+    them, the key counts behind ok."""
+    streams, lt, slen, out_n = case
+    keys, data, kl = _rows.stream_sections(streams, lt, out_n)
+    return (svb_w2.decode_w2_rows(keys, data, lt, flavor),
+            _rows.stream_ok(keys, lt, kl, slen))
+
+
+def _stream_words(case):
+    """The look-back words a stream case's launch uses."""
+    _, lt, _, out_n = case
+    tile = _build.lib("w2").vbz_w2_tile()
+    return 1 + (2 * -(-out_n // tile) + 1) * lt.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor", ["zz16", "zz8"])
+def test_stream_decode_back_to_back_on_one_stream(cuda_device, flavor,
+                                                  monkeypatch):
+    """Every stream case that launches, enqueued on one stream with no
+    synchronize between: largest look-back first, on a fresh kept buffer,
+    then, on another fresh one (the last one's dirty memory free to reuse),
+    smallest first, so calls that use more of the buffer, or grow it,
+    follow calls that used less. Each result bit for bit the
+    composition's; the buffer grows only where a call asks more than it
+    holds."""
+    names = [n for n in _STREAM_CASES if n not in _STREAM_NO_TILE]
+    cases = {n: _stream_case(n, flavor, cuda_device) for n in names}
+    want = {n: _stream_want(c, flavor) for n, c in cases.items()}
+    order = sorted(names, key=lambda n: _stream_words(cases[n]),
+                   reverse=True)
+    got = []
+    for run in (order, order[::-1]):
+        monkeypatch.setattr(svb_w2, "_STREAM_SCRATCH", {})
+        held = 0
+        for name in run:
+            words = _stream_words(cases[name])
+            grown = svb_w2.STREAM_SCRATCH_GROWN
+            got.append((name, svb_w2.decode_w2_streams(*cases[name],
+                                                       flavor)))
+            assert svb_w2.STREAM_SCRATCH_GROWN - grown == (words > held)
+            held = max(held, 1 << (words - 1).bit_length())
+    torch.cuda.synchronize()
+    for name, (out, ok) in got:
+        assert torch.equal(out, want[name][0]), name
+        assert torch.equal(ok, want[name][1]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams_of", ["one stream", "two streams"])
+def test_stream_decode_from_two_threads(cuda_device, streams_of,
+                                        monkeypatch):
+    """Two threads decoding stream cases at once, 30 calls each: both on
+    the device's current stream, where they share its kept buffer and the
+    library's lock keeps each fill with its launch, or each on a stream of
+    its own with a buffer of its own. Every result bit for bit the
+    composition's."""
+    monkeypatch.setattr(svb_w2, "_STREAM_SCRATCH", {})
+    names = ("as encoded", "random bytes")
+    cases = {n: _stream_case(n, "zz16", cuda_device) for n in names}
+    want = {n: _stream_want(c, "zz16") for n, c in cases.items()}
+    side = {n: torch.cuda.Stream(cuda_device) if streams_of == "two streams"
+            else torch.cuda.current_stream(cuda_device) for n in names}
+    torch.cuda.synchronize()
+    got, failed = {}, []
+
+    def decode(name):
+        try:
+            with torch.cuda.stream(side[name]):
+                got[name] = [svb_w2.decode_w2_streams(*cases[name], "zz16")
+                             for _ in range(30)]
+                side[name].synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            failed.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=decode, args=(n,))
+                   for n in names]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads) and not failed, failed
+    torch.cuda.synchronize()
+    for name in names:
+        assert len(got[name]) == 30
+        for out, ok in got[name]:
+            assert torch.equal(out, want[name][0]), name
+            assert torch.equal(ok, want[name][1]), name
+    assert len(svb_w2._STREAM_SCRATCH) == (2 if streams_of == "two streams"
+                                           else 1)
+
+
+@pytest.mark.cuda
+def test_stream_scratch_grows_only_for_a_larger_call_on_card(
+        cuda_device, monkeypatch):
+    """STREAM_SCRATCH_GROWN moves on the first call and on a call that asks
+    more look-back words than the kept buffer holds, and on no other; the
+    results stay the composition's throughout."""
+    monkeypatch.setattr(svb_w2, "_STREAM_SCRATCH", {})
+    small = _stream_case("lengths past out_n", "zz16", cuda_device)
+    mid = _stream_case("as encoded", "zz16", cuda_device)
+    streams, lt, slen, out_n = _stream_case("out_n past the rows", "zz16",
+                                            cuda_device)
+    large = (torch.cat([streams] * 3), torch.cat([lt] * 3),
+             torch.cat([slen] * 3), out_n)
+    assert (_stream_words(small) < _stream_words(mid)
+            < _stream_words(large))
+    for case, moves in ((small, 1), (small, 0), (mid, 1), (small, 0),
+                        (mid, 0), (large, 1), (mid, 0), (large, 0)):
+        grown = svb_w2.STREAM_SCRATCH_GROWN
+        out, ok = svb_w2.decode_w2_streams(*case, "zz16")
+        assert svb_w2.STREAM_SCRATCH_GROWN - grown == moves
+        want = _stream_want(case, "zz16")
+        assert torch.equal(out, want[0]) and torch.equal(ok, want[1])
 
 
 @pytest.mark.cuda

@@ -8,6 +8,10 @@ Every comparison is exact: the codec is an integer codec. The kernels
 themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
 """
 
+import sys
+import threading
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -309,6 +313,120 @@ def test_stream_decode_rejects_bad_arguments(bad):
         flavor = "none16"
     with pytest.raises(ValueError):
         svb_w2.decode_w2_streams(streams, counts, slen, out_n, flavor)
+
+
+def test_stream_scratch_is_kept_while_large_enough(monkeypatch):
+    """The stream decoder's look-back buffer: int64, the next power of two
+    of the words asked, and the same tensor for the same key while it holds
+    what a call asks, however much less that is."""
+    monkeypatch.setattr(svb_w2, "_STREAM_SCRATCH", {})
+    grown = svb_w2.STREAM_SCRATCH_GROWN
+    buf = svb_w2.stream_scratch((0, 7), 40, torch.device("cpu"))
+    assert buf.dtype == torch.int64 and buf.numel() == 64
+    for words in (40, 64, 1, 33):
+        assert svb_w2.stream_scratch((0, 7), words, "cpu") is buf
+    assert svb_w2.STREAM_SCRATCH_GROWN == grown + 1
+
+
+def test_stream_scratch_grows_once_for_a_larger_call(monkeypatch):
+    """A call that asks more than the kept buffer holds replaces it, once,
+    counted in STREAM_SCRATCH_GROWN; the larger one is kept after it."""
+    monkeypatch.setattr(svb_w2, "_STREAM_SCRATCH", {})
+    small = svb_w2.stream_scratch((0, 7), 64, "cpu")
+    grown = svb_w2.STREAM_SCRATCH_GROWN
+    large = svb_w2.stream_scratch((0, 7), 65, "cpu")
+    assert large is not small and large.numel() == 128
+    assert svb_w2.STREAM_SCRATCH_GROWN == grown + 1
+    for words in (128, 65, 64, 1):
+        assert svb_w2.stream_scratch((0, 7), words, "cpu") is large
+    assert svb_w2.STREAM_SCRATCH_GROWN == grown + 1
+
+
+def test_stream_scratch_is_separate_per_device_and_stream(monkeypatch):
+    """Each (device index, stream) key holds a buffer of its own, each
+    counted once."""
+    monkeypatch.setattr(svb_w2, "_STREAM_SCRATCH", {})
+    grown = svb_w2.STREAM_SCRATCH_GROWN
+    keys = [(0, 7), (0, 8), (1, 7)]
+    bufs = [svb_w2.stream_scratch(k, 100, "cpu") for k in keys]
+    assert len({id(b) for b in bufs}) == len(keys)
+    assert svb_w2.STREAM_SCRATCH_GROWN == grown + len(keys)
+    for k, b in zip(keys, bufs):
+        assert svb_w2.stream_scratch(k, 100, "cpu") is b
+    assert svb_w2.STREAM_SCRATCH_GROWN == grown + len(keys)
+
+
+def test_stream_scratch_from_many_threads(monkeypatch):
+    """Threads asking two keys for growing sizes at once: every buffer holds
+    what its caller asked, each buffer made is counted once, and each key
+    ends with the next power of two of the most it was asked."""
+    monkeypatch.setattr(svb_w2, "_STREAM_SCRATCH", {})
+    grown = svb_w2.STREAM_SCRATCH_GROWN
+    seen, short = [], []
+
+    def ask(t):
+        rng = np.random.default_rng(t)
+        for words in rng.integers(1, 5000, 200).tolist():
+            buf = svb_w2.stream_scratch((0, t % 2), words, "cpu")
+            seen.append(buf)
+            if buf.numel() < words:
+                short.append(words)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=ask, args=(t,)) for t in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert len(seen) == 16 * 200 and not short
+    assert svb_w2.STREAM_SCRATCH_GROWN - grown == len({id(b) for b in seen})
+    for key in (0, 1):
+        most = max(int(w) for t in range(key, 16, 2) for w in
+                   np.random.default_rng(t).integers(1, 5000, 200))
+        assert svb_w2._STREAM_SCRATCH[(0, key)].numel() == \
+            1 << (most - 1).bit_length()
+
+
+@pytest.mark.parametrize("case", ["current device", "another device",
+                                  "error"])
+def test_launch_takes_the_raw_stream_and_guards_only_another_device(case):
+    """``_rows.launch`` hands a stand-in entry point each tensor's pointer,
+    the other arguments as they are and the raw current stream of the first
+    tensor's device, last; it enters that device's guard only where another
+    device is current, and raises on a nonzero return."""
+    x, y = torch.zeros(4), torch.zeros(2, dtype=torch.int32)
+    index = x.get_device()
+    current = index if case != "another device" else index + 1
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 700 if case == "error" else 0
+
+    guard = mock.MagicMock()
+    with mock.patch.object(torch._C, "_cuda_getCurrentRawStream",
+                           create=True, return_value=0xBEEF) as raw, \
+            mock.patch.object(torch._C, "_cuda_getDevice", create=True,
+                              return_value=current), \
+            mock.patch.object(torch.cuda, "device", guard):
+        if case == "error":
+            with pytest.raises(RuntimeError, match="stand-in kernel launch "
+                               "failed: CUDA error 700"):
+                _rows.launch(entry, "stand-in", 5, x, y, 3)
+        else:
+            _rows.launch(entry, "stand-in", 5, x, y, 3)
+    raw.assert_called_once_with(index)
+    assert calls == [(5, x.data_ptr(), y.data_ptr(), 3, 0xBEEF)]
+    if case == "another device":
+        guard.assert_called_once_with(index)
+        guard.return_value.__enter__.assert_called_once()
+    else:
+        guard.assert_not_called()
 
 def test_batch_rows_match_pallas3_batch():
     """test_pallas3_batch_rows_independent's batch: pallas_codec3's batched

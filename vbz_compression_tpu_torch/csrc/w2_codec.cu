@@ -51,10 +51,13 @@
 // about one per SM. Tiles of 8192 and 16384 values, or fewer blocks per SM,
 // measured no faster.
 //
-// Entry points launch on the given stream, allocate nothing (the caller
-// passes the zeroed look-back scratch) and return cudaGetLastError().
+// Entry points launch on the given stream, allocate nothing and return the
+// first CUDA error. Encode and decode take the look-back scratch zeroed by
+// the caller; decode_streams zeroes the words its launch uses itself, on the
+// same stream, so a caller can keep one scratch a stream for every call.
 
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 #include <cuda_runtime.h>
@@ -457,14 +460,24 @@ int decode_launch(const uint8_t* keys, const uint8_t* data, const int* counts,
   return cudaGetLastError();
 }
 
+// Held from the scratch's fill to the launch: ctypes releases the GIL, and
+// two threads on one stream must not enqueue fill, fill, D, D, where the
+// second D would start on the first's look-back state.
+std::mutex enqueue_mutex;
+
 template <typename X>
 int decode_streams_launch(const Streams& rows, const int* counts, void* out,
-                          StatusWord* scratch, int B, int N,
-                          cudaStream_t s) {
+                          StatusWord* scratch, long long scratch_words, int B,
+                          int N, cudaStream_t s) {
   const int tiles = grid_tiles(B, N);
-  if (tiles == 0 || !word_aligned<X>(out)) {
+  const long long words = 1 + 2LL * tiles + B;
+  if (tiles == 0 || words > scratch_words || !word_aligned<X>(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const std::lock_guard<std::mutex> hold(enqueue_mutex);
+  const cudaError_t filled =
+      cudaMemsetAsync(scratch, 0, words * sizeof(StatusWord), s);
+  if (filled != cudaSuccess) return static_cast<int>(filled);
   decode_w2_streams<X><<<tiles, kThreads, 0, s>>>(
       rows, counts, static_cast<X*>(out), scratch, N, tiles / B);
   return cudaGetLastError();
@@ -475,8 +488,10 @@ int decode_streams_launch(const Streams& rows, const int* counts, void* out,
 extern "C" {
 
 // Values per tile, T = ceil(N / tile) tiles per row. The scratch of every
-// entry point is 8-byte words, zeroed before each call: 1 + B * T for
-// encode, 1 + 2 * B * T for decode, 1 + 2 * B * T + B for decode_streams.
+// entry point is 8-byte words: 1 + B * T for encode and 1 + 2 * B * T for
+// decode, zeroed by the caller before each call; decode_streams takes a
+// scratch of scratch_words >= 1 + 2 * B * T + B words in any state and
+// zeroes those words on the stream before its launch.
 int vbz_w2_tile() { return kPassTile; }
 
 // x: [B, N] int16 (elem_bytes 2, zz16) or int8 (elem_bytes 1, zz8);
@@ -513,18 +528,21 @@ int vbz_w2_decode(const uint8_t* keys, const uint8_t* data, const int* counts,
 
 // streams: [B, M] u8 v0 streams read in place, counts and stream_lens:
 // [B] i32. Writes out [B, N] int16 (elem_bytes 2) or int8 (elem_bytes 1),
-// 16-byte aligned, and ok [B] (bool).
+// 16-byte aligned, and ok [B] (bool). One fill of the scratch and one
+// launch, enqueued together.
 int vbz_w2_decode_streams(const uint8_t* streams, const int* counts,
                           const int* stream_lens, void* out, bool* ok,
-                          StatusWord* scratch, int B, int N, int M,
-                          int elem_bytes, void* stream) {
+                          StatusWord* scratch, long long scratch_words, int B,
+                          int N, int M, int elem_bytes, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   const Streams rows{streams, M, stream_lens, ok};
   if (elem_bytes == 2) {
-    return decode_streams_launch<int16_t>(rows, counts, out, scratch, B, N, s);
+    return decode_streams_launch<int16_t>(rows, counts, out, scratch,
+                                          scratch_words, B, N, s);
   }
   if (elem_bytes == 1) {
-    return decode_streams_launch<int8_t>(rows, counts, out, scratch, B, N, s);
+    return decode_streams_launch<int8_t>(rows, counts, out, scratch,
+                                         scratch_words, B, N, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

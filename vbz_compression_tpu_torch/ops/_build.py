@@ -44,9 +44,10 @@ _SIGNATURES = {
         "vbz_w2_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         # keys, data, counts, out, scratch, B, N, D, elem_bytes, stream
         "vbz_w2_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # streams, counts, stream_lens, out, ok, scratch, B, N, M, elem_bytes,
-        # stream
-        "vbz_w2_decode_streams": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # streams, counts, stream_lens, out, ok, scratch (any state, zeroed
+        # by the entry point), scratch_words, B, N, M, elem_bytes, stream
+        "vbz_w2_decode_streams": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                  _P],
     },
     "w4": {
         "vbz_w4_encode_tile": [],

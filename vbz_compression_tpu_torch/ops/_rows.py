@@ -142,11 +142,15 @@ def lookback_scratch(tile: int, B: int, N: int, carries: int,
 
 def launch(fn, what: str, *args) -> None:
     """Call a kernel library entry point on the current stream of the first
-    tensor argument's device; raise on a nonzero CUDA error."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    stream = torch.cuda.current_stream(device).cuda_stream
+    tensor argument's device, entering that device's guard only where it is
+    not the current device; raise on a nonzero CUDA error."""
+    index = next(a.get_device() for a in args if isinstance(a, torch.Tensor))
+    stream = torch._C._cuda_getCurrentRawStream(index)
     raw = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
+    if index == torch._C._cuda_getDevice():
         rc = fn(*raw, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*raw, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

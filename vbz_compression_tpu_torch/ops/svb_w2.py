@@ -24,9 +24,10 @@ a row's length do no work beyond zero keys or zero output. The tile size
 gives each thread whole words of keys and output, keeps the staged span
 under 8 KB so that eight blocks share an SM, and pays one look-back per 8 KB
 of int16. The wrapper zeroes the look-back state (one fill) before each
-launch. On the H100 the kernels reach a fraction of the byte bound: each
-tile's steps depend on one another, so its loads are in flight for only part
-of its life (``PERF.md``).
+launch; for the stream decoder the C entry point does (below). On the H100
+the kernels reach a fraction of the byte bound: each tile's steps depend on
+one another, so its loads are in flight for only part of its life
+(``PERF.md``).
 
 Layouts (B rows, N values per row, N % 4 == 0):
     encode_w2_rows(x [B,N] i16|i8, lens [B] i32)
@@ -44,7 +45,10 @@ and then data bytes a row (``parallel.sharded``), and gives what the row
 decode gives on the sections that :func:`._rows.stream_sections` cuts from
 them, with each row's ``ok`` (:func:`._rows.stream_ok`). On the card D reads
 each row where it lies, and sums each row's code + 1 for ``ok``, so the call
-is one fill and one launch.
+is two allocations (values and ``ok``) and one C call, which zeroes the
+look-back state and launches D on the same stream. That state is one buffer
+a device and stream (:func:`stream_scratch`), kept between calls, grown
+when a call needs more and counted in ``STREAM_SCRATCH_GROWN``.
 
 On a CUDA tensor each function launches its kernel (and counts the launch in
 ``ENCODE_LAUNCHES`` / ``DECODE_LAUNCHES`` / ``DECODE_STREAM_LAUNCHES``); on a
@@ -54,9 +58,12 @@ raises.
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import torch
 
-from . import _rows
+from . import _build, _rows
 
 FLAVOR_DTYPES = {"zz16": torch.int16, "zz8": torch.int8}
 
@@ -65,9 +72,16 @@ ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 DECODE_STREAM_LAUNCHES = 0
 
+# Look-back buffers of the stream decoder allocated or grown.
+STREAM_SCRATCH_GROWN = 0
+
 _MAX_N = 1 << 29   # keeps every in-row byte offset (< 2N) in an int32
 # keeps a stream row's data end (key length + 4 out_n) below 2^31 - 1
 _MAX_STREAM_N = 1 << 28
+
+# (device index, raw stream) -> the stream decoder's look-back buffer.
+_STREAM_SCRATCH: dict = {}
+_STREAM_SCRATCH_LOCK = threading.Lock()
 
 
 def _dtype(flavor: str) -> torch.dtype:
@@ -117,8 +131,6 @@ def encode_w2_rows(x: torch.Tensor, lens: torch.Tensor, flavor: str):
     if B == 0 or N == 0:
         return keys, data, torch.zeros(B, dtype=torch.int32, device=x.device)
     data_len = torch.empty(B, dtype=torch.int32, device=x.device)
-    from . import _build
-
     lib = _build.lib("w2")
     scratch = _rows.lookback_scratch(lib.vbz_w2_tile(), B, N, 1,
                                      x.device)
@@ -172,8 +184,6 @@ def decode_w2_rows(keys: torch.Tensor, data: torch.Tensor,
     out = torch.empty(B, N, dtype=dtype, device=keys.device)
     if B == 0 or N == 0:
         return out
-    from . import _build
-
     lib = _build.lib("w2")
     scratch = _rows.lookback_scratch(lib.vbz_w2_tile(), B, N, 2,
                                      keys.device)
@@ -194,30 +204,69 @@ def decode_w2_streams_plain(streams: torch.Tensor, counts: torch.Tensor,
             _rows.stream_ok(keys, counts, kl, stream_lens))
 
 
+@functools.cache
+def _tile() -> int:
+    return _build.lib("w2").vbz_w2_tile()
+
+
+def stream_scratch(key, words: int, device) -> torch.Tensor:
+    """The stream decoder's look-back buffer for ``key`` (a device index and
+    a raw stream): int64, at least ``words`` long, in any state. The one
+    held for the key while it is large enough; else a new one of the next
+    power of two, held from then on and counted in ``STREAM_SCRATCH_GROWN``.
+    Each launch zeroes the words it uses on the key's stream before it
+    starts, so stream order keeps one call's state from the next."""
+    buf = _STREAM_SCRATCH.get(key)
+    if buf is not None and buf.numel() >= words:
+        return buf
+    global STREAM_SCRATCH_GROWN
+    with _STREAM_SCRATCH_LOCK:
+        buf = _STREAM_SCRATCH.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.empty(1 << (words - 1).bit_length(),
+                              dtype=torch.int64, device=device)
+            _STREAM_SCRATCH[key] = buf
+            STREAM_SCRATCH_GROWN += 1
+    return buf
+
+
 def decode_w2_streams(streams: torch.Tensor, counts: torch.Tensor,
                       stream_lens: torch.Tensor, out_n: int, flavor: str):
     """W2 decode of v0 stream rows [B, M], ``counts[b]`` values each into
     [B, out_n], and each row's ``ok``; see the module docstring. Kernel D
     on the rows in place on CUDA, the plain version on CPU."""
+    # The plane's enqueue: every tensor's metadata is read once.
     dtype = _dtype(flavor)
-    _rows.check_2d(streams, torch.uint8, "streams")
+    if streams.dtype != torch.uint8 or streams.dim() != 2:
+        raise ValueError(f"streams: want 2-D {torch.uint8}, got "
+                         f"{streams.dim()}-D {streams.dtype}")
     B, M = streams.shape
-    _rows.check_lens(counts, B, streams, "counts")
-    if tuple(stream_lens.shape) != (B,) or stream_lens.device != \
-            streams.device:
+    device = streams.device
+    if counts.dtype != torch.int32 or counts.shape != (B,):
+        raise ValueError(f"counts: want int32 [{B}], got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if counts.device != device:
+        raise ValueError(f"counts is on {counts.device}, data on {device}")
+    if stream_lens.shape != (B,) or stream_lens.device != device:
         raise ValueError(f"stream_lens {tuple(stream_lens.shape)} on "
                          f"{stream_lens.device} does not match streams "
-                         f"{tuple(streams.shape)} on {streams.device}")
+                         f"{(B, M)} on {device}")
     if out_n % 4:
         raise ValueError(f"out_n={out_n} is not a multiple of 4")
-    if _rows.on_cpu(streams, "W2 stream decode"):
+    if device.type == "cpu":
         return decode_w2_streams_plain(streams, counts, stream_lens, out_n,
                                        flavor)
-    _rows.check_kernel_args(B, out_n, _MAX_STREAM_N, streams, counts)
+    if device.type != "cuda":
+        raise ValueError(f"no W2 stream decode for device {device}")
+    if out_n > _MAX_STREAM_N or B > _rows.MAX_B:
+        raise ValueError(f"batch [{B}, {out_n}] exceeds the kernel's "
+                         f"[{_rows.MAX_B}, {_MAX_STREAM_N}]")
+    if not (streams.is_contiguous() and counts.is_contiguous()):
+        raise ValueError("kernel arguments must be contiguous")
     if M >= 1 << 31:
         raise ValueError(f"stream row of {M} bytes exceeds the kernel's "
                          "int32")
-    out = torch.empty(B, out_n, dtype=dtype, device=streams.device)
+    out = torch.empty(B, out_n, dtype=dtype, device=device)
     if B == 0 or out_n == 0:
         # No tile to launch: the keys hold no live value, so each row's data
         # end is its key length.
@@ -227,15 +276,14 @@ def decode_w2_streams(streams: torch.Tensor, counts: torch.Tensor,
         # A data end stays below 2^31 - 1 (out_n <= _MAX_STREAM_N), so a
         # length outside int32 is ok nowhere, as its clamped one.
         stream_lens = stream_lens.clamp(-1, (1 << 31) - 1).to(torch.int32)
-    ok = torch.empty(B, dtype=torch.bool, device=streams.device)
-    from . import _build
-
-    lib = _build.lib("w2")
-    scratch = _rows.lookback_scratch(lib.vbz_w2_tile(), B, out_n, 2,
-                                     streams.device, row_words=1)
-    _rows.launch(lib.vbz_w2_decode_streams, "W2 stream decode", streams,
-                 counts, stream_lens.contiguous(), out, ok, scratch, B,
-                 out_n, M, out.element_size())
+    ok = torch.empty(B, dtype=torch.bool, device=device)
+    index = device.index
+    scratch = stream_scratch(
+        (index, torch._C._cuda_getCurrentRawStream(index)),
+        1 + (2 * -(-out_n // _tile()) + 1) * B, device)
+    _rows.launch(_build.lib("w2").vbz_w2_decode_streams, "W2 stream decode",
+                 streams, counts, stream_lens.contiguous(), out, ok, scratch,
+                 scratch.numel(), B, out_n, M, out.element_size())
     global DECODE_STREAM_LAUNCHES
     DECODE_STREAM_LAUNCHES += 1
     return out, ok
