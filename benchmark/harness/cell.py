@@ -16,6 +16,7 @@ import dataclasses
 import functools
 import importlib.util
 import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -103,6 +104,12 @@ class Cell:
         cycling through it in its order."""
         b = self.traffic["reads_per_call"]
         return (k * b + np.arange(b)) % self.reads.count
+
+    @property
+    def period(self) -> int:
+        """The number of calls after which ``batch`` repeats."""
+        count = self.reads.count
+        return count // math.gcd(count, self.traffic["reads_per_call"])
 
     @functools.cached_property
     def host_reads(self) -> list[np.ndarray]:

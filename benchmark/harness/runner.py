@@ -6,7 +6,9 @@ last, which for an entry that leaves work on the device is a synchronize.
 No call starts once ``seconds`` have passed. Rates are all the bytes of the
 window's calls over all of its time. With ``trace`` the window also runs
 under the device trace and the metrics' host spans, and the run reports
-the per-layer metrics instead of the end-to-end ones.
+the per-layer metrics instead of the end-to-end ones; a traffic mix whose
+calls are short may bound that window by its number of calls
+(``traced_calls``), so that the trace stays small enough to read back.
 """
 
 from __future__ import annotations
@@ -197,6 +199,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device, *,
     sync()
     parts["read_set_s"], t = _lap(t)
     entry = entry_mod.Entry(cell, program=program)
+    # The calls' reads repeat after ``period`` calls: made here, not in the
+    # window.
+    batches = [cell.batch(k) for k in range(cell.period)]
     sync()
     parts["inputs_s"], t = _lap(t)
     if on_card:
@@ -215,6 +220,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device, *,
     ends: list = []    # (end of each completed call, raw bytes so far)
     call_ns: list = []
     first_error = None
+    last = cell.traffic.get("traced_calls") if trace else None
     with contextlib.ExitStack() as stack:
         if trace:
             stack.enter_context(spans_mod.installed(spans, targets))
@@ -222,8 +228,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device, *,
                 stack.enter_context(recorder.window())
         lo = time.perf_counter_ns()
         k = 0
-        while k == 0 or time.perf_counter_ns() - lo < seconds * 1e9:
-            idx = cell.batch(k)
+        while k == 0 or (k != last and
+                         time.perf_counter_ns() - lo < seconds * 1e9):
+            idx = batches[k % len(batches)]
             attempted += len(idx)
             t_call = time.perf_counter_ns()
             try:

@@ -1,7 +1,8 @@
 """plane_ops_pct.resident: share (%) of the card's busy time spent in ops other
-than kernel D: the wire-format plane's own tensor ops (the padded key slice,
-the gather of the data section, the key counts behind ``ok``), its copies
-and fills."""
+than kernel D. The wire-format plane decodes its W2 stream rows in place
+with D, so what it runs besides is the fill of D's look-back words (a
+``cudaMemsetAsync`` before each call's D); any copy, fill or tensor op that a
+change adds to the plane's path shows here."""
 
 KERNELS = ("decode_w2",)
 

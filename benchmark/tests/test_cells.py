@@ -50,6 +50,23 @@ def test_traced_run_reports_its_span_metrics(workload):
     assert out["device"]["window_s"] > 0
 
 
+BOUNDED = [w for w in CELLS if "traced_calls" in traffic_of(w)]
+
+
+@pytest.mark.parametrize("workload", BOUNDED)
+def test_a_traced_window_ends_after_its_traced_calls(workload):
+    traffic = {**tiny_traffic(traffic_of(workload)), "traced_calls": 3}
+    runs = {trace: runner.run(workload, 2**31 + 7, 3.0 if trace else 0.2,
+                              trace, "cpu", config_override=TINY_READS,
+                              traffic_override=traffic)
+            for trace in (True, False)}
+    assert runs[True]["correct"] and runs[False]["correct"]
+    assert runs[True]["calls"] == 3
+    assert runs[True]["attempted"] == 3 * traffic["reads_per_call"]
+    assert runs[True]["device"]["window_s"] < 3.0
+    assert runs[False]["calls"] > 3
+
+
 # The write control needs reads long enough for libzstd's level-1 tables
 # to differ from the stated parameters'.
 LONG_READS = {"reads": {"count": 3, "shortest": 30_000, "longest": 36_000}}

@@ -70,25 +70,19 @@ def synthetic(with_layers=True, program_spans=PROGRAM) -> runner.Run:
 
 
 EXPECTED = {
-    "decode_gb_s": 2.0, "encode_gb_s": 2.0, "resident_decode_gb_s": 2.0,
-    "zstd_pct.read": 30.0, "zstd_pct.write": 50.0,
-    "backend_pct.write": 25.0, "validate_pct.read": 20.0,
-    "d_roofline.read": 10.0, "d_roofline.resident": 10.0,
-    "e_roofline.write": 10.0,
+    "encode_gb_s": 2.0, "resident_decode_gb_s": 2.0,
+    "zstd_pct.write": 50.0, "backend_pct.write": 25.0,
+    "d_roofline.resident": 10.0, "e_roofline.write": 10.0,
     "plane_ops_pct.resident": 100.0 * 0.13 / 0.23,
-    "device_idle_pct.read": 78.0, "device_idle_pct.write": 78.0,
-    "device_idle_pct.resident": 78.0,
-    "call_p95_ms.read": 95.95e-6, "call_p95_ms.write": 95.95e-6,
+    "device_idle_pct.write": 78.0, "device_idle_pct.resident": 78.0,
+    "call_p95_ms.write": 95.95e-6,
     # The program's spans. Own time of the roots: [0, 0.05] and [0.45, 0.5]
     # s of the batch decode, all of the encode.
-    "api_own_pct.read": 20.0, "api_own_pct.write": 20.0,
-    "copy_pct.read": 6.0, "copy_pct.write": 6.0,
-    "copy_gb_s.read": 2.0, "copy_gb_s.write": 2.0,
-    "device_wait_pct.read": 3.0, "device_wait_pct.write": 3.0,
-    "validate_gb_s.read": 4.0, "plane_host_pct.resident": 10.0,
+    "api_own_pct.write": 20.0, "copy_pct.write": 6.0,
+    "copy_gb_s.write": 2.0, "device_wait_pct.write": 3.0,
+    "plane_host_pct.resident": 10.0,
     # Idle 0.78 s; the spans cover 0.5 s of it (all but [0.5, 0.6],
     # [0.7, 0.8] and [0.9, 1.0]).
-    "idle_unexplained_pct.read": 100.0 * 0.28 / 0.78,
     "idle_unexplained_pct.write": 100.0 * 0.28 / 0.78,
     "idle_unexplained_pct.resident": 100.0 * 0.28 / 0.78,
 }
@@ -161,7 +155,8 @@ def test_a_part_reads_its_quantitys_file_unless_it_has_its_own():
     metrics = cell_mod.BENCH / "metrics"
     assert cell_mod.reader_path("device_idle_pct.write") == \
         metrics / "device_idle_pct.py"
-    assert cell_mod.reader_path("zstd_pct.read") == metrics / "zstd_pct.read.py"
+    assert cell_mod.reader_path("zstd_pct.write") == \
+        metrics / "zstd_pct.write.py"
 
 
 @pytest.mark.parametrize("name", HARNESS_NAMES)

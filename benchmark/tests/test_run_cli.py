@@ -14,7 +14,7 @@ from benchmark import run
 from benchmark.harness import cell as cell_mod
 
 ROOT = cell_mod.ROOT
-ARGS = ["--workload", "fast5_zstd1.read_per_read", "--seed", "1",
+ARGS = ["--workload", "fast5_zstd1.write_per_read", "--seed", "1",
         "--seconds", "1", "--trace", "0"]
 
 
@@ -47,14 +47,13 @@ sys.path.insert(0, ".")
 os.environ["VBZ_BACKEND"] = "torch"
 import benchmark.run, benchmark.control
 from benchmark.harness import (cell, controls, counting, devtrace, faults,
-                               malformed, reads, reference, runner, sample,
-                               spans, zstd)
+                               reads, reference, runner, sample, spans, zstd)
 for path in glob.glob("benchmark/entries/*.py") + glob.glob(
         "benchmark/metrics/*.py"):
     cell.load_module(cell.Path(path))
 from vbz_compression_tpu_torch import api
 api._zstandard = lambda: None
-runner.run("fast5_zstd1.read_per_read", 1, 0.1, True, "cpu",
+runner.run("fast5_zstd1.write_per_read", 1, 0.1, True, "cpu",
            config_override={"reads": {"count": 4, "shortest": 100,
                                       "longest": 900}},
            traffic_override={"reads_per_call": 1, "sample_calls": 2,
